@@ -4,31 +4,52 @@ NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout; needs 1 card
 
-It drives the port's main path -- the teacher's eval forward at batch 1
-with 8192 points per cloud, through eval.evaluate_model -- and holds each
-hand-written kernel against its plain PyTorch version. Phases, each printing
-flushed lines as it goes:
+It drives the port's two paths -- the teacher's eval forward at batch 1
+with 8192 points per cloud, through eval.evaluate_model, and the teacher's
+train step at batch 3 with 8192 points per cloud, through
+train.make_train_step -- and holds each hand-written kernel against its
+plain PyTorch version. Phases, each printing flushed lines as it goes:
 
   1. device: name, count, power limit (nvidia-smi), torch and CUDA versions;
   2. build: one nvcc call over csrc/*.cu, its seconds, and the registers,
      shared memory and spills that ptxas reports per kernel;
-  3. kernels against plain versions, on the inputs that one forward hands
-     each kernel (1 FPS, 19 kNN, 12 pool call sites): FPS bit-identical,
-     kNN rows with equal index sets >= 99.9 % at every site (rows that
-     differ: sorted recomputed distances within 1e-5 relative), pool within
-     1e-4 x max|plain|;
-  4. the main path: evaluate_model over 3 seeded synthetic pairs with
+  3. kernels against plain versions, on the inputs that one eval forward
+     hands each kernel (1 FPS, 19 kNN, 12 pool call sites): FPS
+     bit-identical, kNN rows with equal index sets >= 99.9 % at every site
+     (rows that differ: sorted recomputed distances within 1e-5 relative),
+     pool within 1e-4 x max|plain|;
+  4. the eval path: evaluate_model over 3 seeded synthetic pairs with
      seeded random weights, launch counts per forward (FPS 1, kNN 19,
      pool 12), flows[0..3] against the same model with every kernel swapped
      for its plain version (max abs diff <= 1e-3, median <= 1e-5), and the
-     metrics (random weights: a sanity line only);
-  5. timing: each kernel at each call site with CUDA events (20 launches
-     after warm-up) beside its plain version (5), the bound from the shapes,
-     the forward's ms/pair and pairs/s over 10 pairs, peak device memory,
-     then 2 pairs under torch.profiler: device time a pair by kernel name,
-     launches a pair and the device's busy share of the profiled wall;
-  6. one {"kernels": [...]} line;
-  7. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+     metrics and eval loss (random weights: a sanity line only);
+  5. eval timing: each kernel at each call site with CUDA events (20
+     launches after warm-up) beside its plain version (5), the bound from
+     the shapes, the forward's ms/pair and pairs/s over 10 pairs, peak
+     device memory, then 2 pairs under torch.profiler: device time a pair
+     by kernel name, launches a pair and the device's busy share;
+  6. pool backward against plain: the 12 pool call sites of a batch-3
+     train forward, a seeded cotangent, d_u / d_v / d_weight / d_bias of the
+     kernel against torch.autograd of pool_plain within POOL_BWD_TOL of
+     each output's max |plain| (the kernel sums d_u, d_weight and d_bias
+     with float atomics, in an order that changes from run to run), and a
+     crafted tie case per width (equal rows of u, repeated neighbours, zero
+     pre-activations) that must split the cotangent as the plain version,
+     and a ragged case per width (K = 16, N1 off every tile);
+  7. the train path: one train step of the teacher (seed 0) through the
+     kernels and of its copy through the plain versions, on the same
+     batch: loss within 1e-5 relative, every gradient leaf within GRAD_TOL
+     of the leaf's max |plain| (leaves whose true gradient is 0 below 1e-5
+     of the largest gradient), BatchNorm running statistics within 1e-5,
+     and the launches of the step (FPS 1, kNN 19, pool 12, pool_bwd 12);
+  8. train timing: 10 steps on one fixed batch after a warm-up, ms a step
+     (median, mean), steps/s, peak device memory, the loss of every step
+     (it must fall: a sanity check, not a convergence claim), 2 more steps
+     under torch.profiler as in phase 5, and each kernel at the step's
+     call sites with CUDA events beside its plain version and its bound;
+  9. one {"kernels": [...]} line (times per train step; the eval
+     forward's beside them);
+ 10. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -39,6 +60,7 @@ BUDGET_S seconds, the build included.
 from __future__ import annotations
 
 import contextlib
+import copy
 import faulthandler
 import json
 import re
@@ -54,14 +76,26 @@ SEED = 0
 N_POINTS = 8192
 N_METRIC_PAIRS = 3
 N_TIMED_PAIRS = 10
-N_PROFILED_PAIRS = 2
+N_PROFILED_PAIRS = N_PROFILED_STEPS = 2
 PROFILE_TOP = 12
 REPS, PLAIN_REPS = 20, 5
+TRAIN_BATCH = 3
+N_TRAIN_WARMUP, N_TRAIN_STEPS = 2, 10
+# the backward kernel adds d_u, d_weight and d_bias with float atomics, in
+# an order that changes from run to run: float32 rounding of sums over up
+# to B * N1 * K = 786432 rows, not bit-equality
+POOL_BWD_TOL = 1e-4
+# a train step through the kernels against the plain versions: the same
+# math, but those atomic sums in another order, carried through the whole
+# backward; per leaf, relative to the leaf's max |plain gradient|
+GRAD_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 on the CUDA
 # cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 PER_FORWARD = {"fps": 1, "knn": 19, "pool": 12}
+PER_TRAIN_STEP = {"fps": 1, "knn": 19, "pool": 12, "pool_bwd": 12}
+KERNEL_RE = r"(fps|knn|pool_bwd_dw|pool_bwd|pool)_kernel"
 
 KERNEL_META = {
     "fps": dict(source="kd_pointcloud_tpu_torch/csrc/fps.cu",
@@ -70,6 +104,8 @@ KERNEL_META = {
                 replaces="kd_pointcloud_tpu/ops/pallas/knn_fused.py:319"),
     "pool": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused.cu",
                  replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:173"),
+    "pool_bwd": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused_bwd.cu",
+                     replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:269"),
 }
 
 
@@ -88,7 +124,7 @@ def ptxas_summary(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(fps|knn|pool)_kernel(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(KERNEL_RE + r"(?:ILi(\d+)E)?", m.group(1))
             name = f"{k.group(1)}_kernel<{k.group(2)}>" if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -106,11 +142,12 @@ def ptxas_summary(text: str):
     return out
 
 
-def profile_forward(fwd, pairs) -> None:
-    """Where the forward's time goes on the card: device time a pair by
-    kernel name (the port's own kernels marked *), launches a pair, and the
-    device's busy share of the profiled wall (one stream, so kernels do not
-    overlap). The profiler's own host cost lowers that share."""
+def profile_device(run, n: int, what: str) -> None:
+    """Where the time goes on the card: run(i) for i < n under
+    torch.profiler; device time a {what} by kernel name (the port's own
+    kernels marked *), launches a {what}, and the device's busy share of the
+    profiled wall (one stream, so kernels do not overlap). The profiler's
+    own host cost lowers that share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -119,30 +156,124 @@ def profile_forward(fwd, pairs) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for p in pairs:
-            fwd(*p[:4])
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / len(pairs)
+        wall = (time.perf_counter() - t) * 1e3 / n
+    # kernels only: a user annotation on the device (the optimizer's
+    # step, for one) spans kernels that are counted on their own
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    log(f"  profile: {len(pairs)} pairs under torch.profiler, "
-        f"{wall:.3f} ms a pair of wall")
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    log(f"  profile: {n} of them under torch.profiler, {wall:.3f} ms a "
+        f"{what} of wall")
     if not rows:
         log("  profile: device time not measured (the profiler saw no "
             "CUDA kernels)")
         return
-    dev = {e.key: e.self_device_time_total / 1e3 / len(pairs) for e in rows}
-    calls = {e.key: e.count / len(pairs) for e in rows}
+    dev = {e.key: e.self_device_time_total / 1e3 / n for e in rows}
+    calls = {e.key: e.count / n for e in rows}
     total = sum(dev.values())
-    own = sum(t for k, t in dev.items()
-              if re.search(r"(fps|knn|pool)_kernel<", k))
-    log(f"  profile: device time {total:.3f} ms a pair over "
+    own = sum(t for k, t in dev.items() if re.search(KERNEL_RE + "<", k))
+    log(f"  profile: device time {total:.3f} ms a {what} over "
         f"{sum(calls.values()):.0f} kernel launches; busy share "
         f"{total / wall:.3f} of the profiled wall; the port's kernels "
         f"{own:.3f} ms")
     for key in sorted(dev, key=dev.get, reverse=True)[:PROFILE_TOP]:
-        mark = "*" if re.search(r"(fps|knn|pool)_kernel<", key) else " "
+        mark = "*" if re.search(KERNEL_RE + "<", key) else " "
         log(f"   {mark} {dev[key]:8.3f} ms {calls[key]:6.1f}x  {key[:90]}")
+
+
+def work(name: str, args):
+    """(operations, bytes) the function needs on these inputs: each input
+    read once, each output written once."""
+    if name == "fps":
+        xyz, m = args
+        B, N, _ = xyz.shape
+        # per point and round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
+        return B * (m - 1) * N * 10, B * N * 12 + B * m * 4
+    if name == "knn":
+        k, xyz, q = args
+        B, S, N = q.shape[0], q.shape[1], xyz.shape[1]
+        # per pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add, 1 compare
+        return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
+    u, idx, v, w, b = args[:5]
+    B, N2, C = u.shape
+    N1, K = idx.shape[1:]
+    if name == "pool":
+        # per (query, neighbour): C add + C leaky, C x C multiply-add,
+        # C bias + C leaky + C max
+        return (B * N1 * K * (2 * C * C + 5 * C),
+                (B * N2 * C + 2 * B * N1 * C + C * C + C + B * N1 * K) * 4)
+    # pool_bwd. Dense, per (query, neighbour): the forward's 2 C^2 + 5 C
+    # again (recomputed: the forward saves only its inputs), the max mask
+    # (C compares, C counts) and d_g = d_h0 leaky', d_v, d_u (3 C). d_p is
+    # nonzero only in the mask -- one neighbour a (query, output channel),
+    # more only where maxima tie exactly -- so d_h0 = d_p w, d_w += d_p^T h0
+    # (2 C each) and d_bias (1) count at the mask's entries on these inputs.
+    # Reads u, idx, v, w, bias, ct, writes d_u, d_v, d_w, d_bias.
+    return (B * N1 * K * (2 * C * C + 10 * C) + mask_entries(*args[:5])
+            * (4 * C + 1),
+            (2 * B * N2 * C + B * N1 * K + 3 * B * N1 * C + 2 * C * C
+             + 2 * C) * 4)
+
+
+def mask_entries(u, idx, v, weight, bias) -> int:
+    """The (query, neighbour, output channel) entries where leaky(p) is its
+    query's max over the neighbours: B N1 C without ties."""
+    import torch
+    from kd_pointcloud_tpu_torch.ops import group_points, leaky
+
+    with torch.no_grad():
+        p = leaky(torch.nn.functional.linear(
+            leaky(group_points(u, idx) + v[:, :, None, :]), weight, bias))
+        return int((p == p.amax(dim=2, keepdim=True)).sum())
+
+
+def pool_bwd_plain(u, idx, v, weight, bias, ct):
+    """(d_u, d_v, d_weight, d_bias) of pool_plain by torch.autograd."""
+    import torch
+    from kd_pointcloud_tpu_torch.ops.pool_fused import pool_plain
+
+    ts = [t.detach().requires_grad_() for t in (u, v, weight, bias)]
+    with torch.enable_grad():
+        out = pool_plain(ts[0], idx, ts[1], ts[2], ts[3])
+        return torch.autograd.grad(out, ts, ct)
+
+
+def tie_case(u, idx, v, weight, bias, ct):
+    """Pool inputs with exact ties: in the first quarter of the queries
+    every neighbour alternates between rows 0 and 1 of u, made equal; in
+    the second quarter all neighbours are one row and v cancels it, so the
+    first leaky's input is exactly 0 and every p_k is the bias, which is
+    exactly 0 in every fourth channel."""
+    from kd_pointcloud_tpu_torch.ops import gather_points
+
+    u, idx, v, bias = u.clone(), idx.clone(), v.clone(), bias.clone()
+    q = idx.shape[1] // 4
+    u[:, 1] = u[:, 0]
+    idx[:, :q, 0::2], idx[:, :q, 1::2] = 0, 1
+    idx[:, q:2 * q, :] = idx[:, q:2 * q, :1]
+    v[:, q:2 * q] = -gather_points(u, idx[:, q:2 * q, 0].contiguous())
+    bias[::4] = 0.0
+    return u, idx, v, weight, bias, ct
+
+
+def ragged_case(u, idx, v, weight, bias, ct):
+    """Pool inputs off the path's grid: K = 16 neighbours (slots left
+    empty in the backward kernel) and N1 not a multiple of any query
+    tile."""
+    n = idx.shape[1] - 5
+    return (u, idx[:, :n, :16].contiguous(), v[:, :n].contiguous(), weight,
+            bias, ct[:, :n].contiguous())
+
+
+def zero_gradient_leaf(name: str) -> bool:
+    """The Dense bias feeding a flow head's BatchNorm: the batch mean
+    removes it, so its true gradient is 0 and any float32 value is
+    rounding noise."""
+    return (name.startswith("flow") and ".convs." in name
+            and name.endswith("dense.bias"))
 
 
 def main() -> int:
@@ -168,6 +299,8 @@ def main() -> int:
     from kd_pointcloud_tpu_torch.ops import group_points, kernels
     from kd_pointcloud_tpu_torch.ops import knn as knn_mod
     from kd_pointcloud_tpu_torch.ops import pool_fused as pool_mod
+    from kd_pointcloud_tpu_torch.train import make_optimizer, make_train_step
+    from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
 
     # the watchdog ends the process even if a kernel hangs the main thread
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
@@ -181,7 +314,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/7 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/10 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -191,52 +324,60 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/7 build] {len(kernels.sources())} sources, one nvcc call, "
+    log(f"[2/10 build] {len(kernels.sources())} sources, one nvcc call, "
         f"{info['seconds']:.1f} s{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
         log(f"  {line}")
     deadline("build")
 
     # ---------------------------------------------------------------- 3
-    mods = {"fps": (fps_mod, "_fps_cuda", fps_mod.fps_plain),
-            "knn": (knn_mod, "_knn_cuda", knn_mod.knn_plain),
-            "pool": (pool_mod, "_pool_cuda", pool_mod.pool_plain)}
-    cuda_fns = {n: getattr(m, a) for n, (m, a, _) in mods.items()}
-    plain_fns = {n: p for n, (_, _, p) in mods.items()}
+    # where the model reaches each kernel: swapped for a recorder or for
+    # the plain version (the pool's point carries its backward kernel too)
+    points = {"fps": (fps_mod, "_fps_cuda", fps_mod.fps_plain),
+              "knn": (knn_mod, "_knn_cuda", knn_mod.knn_plain),
+              "pool": (pool_mod, "_pool_card", pool_mod.pool_plain)}
+    originals = {n: getattr(m, a) for n, (m, a, _) in points.items()}
+    cuda_fns = {"fps": fps_mod._fps_cuda, "knn": knn_mod._knn_cuda,
+                "pool": pool_mod._pool_cuda,
+                "pool_bwd": pool_mod._pool_bwd_cuda}
+    plain_fns = {"fps": fps_mod.fps_plain, "knn": knn_mod.knn_plain,
+                 "pool": pool_mod.pool_plain, "pool_bwd": pool_bwd_plain}
 
     @contextlib.contextmanager
     def swapped(make):
-        """Replace each kernel launcher by make(name, launcher, plain)."""
+        """Replace each kernel entry by make(name, entry, plain)."""
         try:
-            for n, (m, a, p) in mods.items():
-                setattr(m, a, make(n, cuda_fns[n], p))
+            for n, (m, a, p) in points.items():
+                setattr(m, a, make(n, originals[n], p))
             yield
         finally:
-            for n, (m, a, _) in mods.items():
-                setattr(m, a, cuda_fns[n])
+            for n, (m, a, _) in points.items():
+                setattr(m, a, originals[n])
 
-    calls = {n: [] for n in mods}
+    def recorder(store):
+        def make(name, entry, _plain):
+            def run(*args):
+                store[name].append(tuple(
+                    a.detach().clone() if torch.is_tensor(a) else a
+                    for a in args))
+                return entry(*args)
+            return run
+        return make
 
-    def recorder(name, launcher, _plain):
-        def run(*args):
-            calls[name].append(tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args))
-            return launcher(*args)
-        return run
-
+    calls = {n: [] for n in points}
     model = BidPointFlowNet(PRESETS["teacher"], device="cuda",
                             generator=torch.Generator().manual_seed(SEED))
     model.eval()
     pairs = synthetic_pairs(N_METRIC_PAIRS + N_TIMED_PAIRS + 1, N_POINTS,
                             seed=SEED)
     dev_pairs = [[torch.from_numpy(a)[None].cuda() for a in p] for p in pairs]
-    with swapped(recorder), torch.inference_mode():
+    with swapped(recorder(calls)), torch.inference_mode():
         model(*dev_pairs[0][:4])
     torch.cuda.synchronize()
     got = {n: len(c) for n, c in calls.items()}
     check(got == PER_FORWARD, f"call sites per forward {got}, "
           f"expected {PER_FORWARD}")
-    log(f"[3/7 kernels vs plain] call sites of one forward: {got}")
+    log(f"[3/10 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name == "fps":
@@ -248,7 +389,7 @@ def main() -> int:
         return (f"B={u.shape[0]} N={idx.shape[1]} K={idx.shape[2]} "
                 f"C={u.shape[2]}")
 
-    results = {n: dict(max_abs_err=0.0) for n in mods}
+    results = {n: dict(max_abs_err=0.0) for n in cuda_fns}
     with torch.inference_mode():
         for args in calls["fps"]:
             k_out, p_out = cuda_fns["fps"](*args), plain_fns["fps"](*args)
@@ -304,20 +445,20 @@ def main() -> int:
     kernels.reset_launches()
     metrics = evaluate_model(model, pairs[:N_METRIC_PAIRS])
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    want = {n: c * N_METRIC_PAIRS for n, c in PER_FORWARD.items()}
-    log(f"[4/7 main path] evaluate_model over {N_METRIC_PAIRS} pairs of "
-        f"{N_POINTS} points: launches {launches} (per forward "
-        f"{ {n: c / N_METRIC_PAIRS for n, c in launches.items()} })")
-    check(launches == want, f"launches {launches}, expected {want}")
-    log("  metrics (random weights, sanity only): " + ", ".join(
+    eval_launches = dict(kernels.LAUNCHES)
+    want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
+    log(f"[4/10 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+        f"{N_POINTS} points: launches {eval_launches} (per forward "
+        f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
+    check(eval_launches == want, f"launches {eval_launches}, expected {want}")
+    log("  metrics and eval loss (random weights, sanity only): " + ", ".join(
         f"{k} {v:.6f}" for k, v in metrics.items()))
     check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
           f"metrics not finite: {metrics}")
 
     with torch.inference_mode():
         out_k = model(*dev_pairs[0][:4])
-        with swapped(lambda n, launcher, plain: plain):
+        with swapped(lambda n, entry, plain: plain):
             out_p = model(*dev_pairs[0][:4])
     for lvl in range(4):
         fk, fp = out_k["flows"][lvl], out_p["flows"][lvl]
@@ -332,7 +473,7 @@ def main() -> int:
     for key in ("fps_idx1", "fps_idx2"):
         check(all(torch.equal(a, b) for a, b in zip(out_k[key], out_p[key])),
               f"{key} differs from the plain versions'")
-    deadline("main path")
+    deadline("eval path")
 
     # ---------------------------------------------------------------- 5
     def cuda_ms(fn, reps, warmup):
@@ -348,61 +489,39 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def work(name, args):
-        """(operations, bytes) the function needs on these inputs."""
-        if name == "fps":
-            xyz, m = args
-            B, N, _ = xyz.shape
-            # per point and round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-            return B * (m - 1) * N * 10, B * N * 12 + B * m * 4
-        if name == "knn":
-            k, xyz, q = args
-            B, S, N = q.shape[0], q.shape[1], xyz.shape[1]
-            # per pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add, 1 compare
-            return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
-        u, idx, v, w, b = args
-        B, N2, C = u.shape
-        N1, K = idx.shape[1:]
-        # per (query, neighbour): C add + C leaky, C x C multiply-add,
-        # C bias + C leaky + C max
-        return (B * N1 * K * (2 * C * C + 5 * C),
-                (B * N2 * C + 2 * B * N1 * C + C * C + C + B * N1 * K) * 4)
+    def time_sites(name, sites):
+        """Kernel and plain ms and the bound, summed over call sites."""
+        tot = dict(ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+                   bound_ms=0.0)
+        for args in sites:
+            ms = cuda_ms(lambda: cuda_fns[name](*args), REPS, 3)
+            pms = cuda_ms(lambda: plain_fns[name](*args), PLAIN_REPS, 1)
+            ops, nbytes = work(name, args)
+            ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+            tot["ms"] += ms
+            tot["plain_ms"] += pms
+            tot["ops_ms"] += ops_ms
+            tot["bytes_ms"] += bytes_ms
+            tot["bound_ms"] += max(ops_ms, bytes_ms)
+            log(f"  {name} {site(name, args)}: {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                           else "bytes")
+        return tot
 
-    kernel_rows = []
-    log(f"[5/7 timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/10 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
+    eval_times = {}
     with torch.inference_mode():
-        for name in mods:
-            tot = dict(ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                       bound_ms=0.0)
-            for args in calls[name]:
-                ms = cuda_ms(lambda: cuda_fns[name](*args), REPS, 3)
-                pms = cuda_ms(lambda: plain_fns[name](*args), PLAIN_REPS, 1)
-                ops, nbytes = work(name, args)
-                ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-                bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-                tot["ms"] += ms
-                tot["plain_ms"] += pms
-                tot["ops_ms"] += ops_ms
-                tot["bytes_ms"] += bytes_ms
-                tot["bound_ms"] += max(ops_ms, bytes_ms)
-                log(f"  {name} {site(name, args)}: {ms:.4f} ms, plain "
-                    f"{pms:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
-                    f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
-            log(f"  {name} per forward: {tot['ms']:.4f} ms, plain "
-                f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
-            kernel_rows.append(dict(
-                name=name, route="cuda", **KERNEL_META[name],
-                launches=launches[name],
-                launches_per_forward=launches[name] // N_METRIC_PAIRS,
-                max_abs_err=results[name]["max_abs_err"],
-                ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=tot["bound_ms"],
-                bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
-                          else "bytes"),
-                library_ms=None, match=results[name]["match"]))
-    deadline("kernel timing")
+        for name in points:
+            eval_times[name] = time_sites(name, calls[name])
+            t = eval_times[name]
+            log(f"  {name} per forward: {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+    deadline("eval kernel timing")
 
     fwd = make_eval_forward(model)
     fwd(*dev_pairs[N_METRIC_PAIRS][:4])
@@ -424,13 +543,170 @@ def main() -> int:
         f"{statistics.median(per_pair):.3f} ms, min {min(per_pair):.3f}, "
         f"max {max(per_pair):.3f}); peak memory {peak / 2**20:.1f} MiB")
     deadline("forward timing")
-    profile_forward(fwd, timed[:N_PROFILED_PAIRS])
+    profile_device(lambda i: fwd(*timed[i][:4]), N_PROFILED_PAIRS, "pair")
+    del model, fwd, out_k, out_p
     deadline("forward profile")
 
-    # ---------------------------------------------------------------- 6, 7
-    log("[6/7 kernels]")
+    # ---------------------------------------------------------------- 6
+    tmodel = BidPointFlowNet(PRESETS["teacher"], device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+    pmodel = copy.deepcopy(tmodel)
+    batch = synthetic_batches(1, TRAIN_BATCH, N_POINTS, SEED + 1, "cuda")[0]
+    tcalls = {n: [] for n in points}
+    rec_model = copy.deepcopy(tmodel).train()
+    with swapped(recorder(tcalls)), torch.no_grad():
+        rec_model(batch["pos1"], batch["pos2"], batch["norm1"],
+                  batch["norm2"])
+    del rec_model
+    got = {n: len(c) for n, c in tcalls.items()}
+    check(got == PER_FORWARD, f"call sites per train forward {got}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bwd_sites = [(*args, torch.randn(args[2].shape, device="cuda",
+                                     generator=gen))
+                 for args in tcalls["pool"]]
+    log(f"[6/10 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+        f"a batch-{TRAIN_BATCH} train forward, seeded cotangent; error / "
+        f"max|plain| of d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
+    widths = {}
+    for args in bwd_sites:
+        widths.setdefault(args[0].shape[2], args)
+    cases = ([("", a) for a in bwd_sites]
+             + [("tie case ", tie_case(*a)) for a in widths.values()]
+             + [("ragged case ", ragged_case(*a)) for a in widths.values()])
+    worst_ratio = 0.0
+    for label, args in cases:
+        fwd_err = float((cuda_fns["pool"](*args[:5])
+                         - plain_fns["pool"](*args[:5])).abs().max())
+        got_k, got_p = cuda_fns["pool_bwd"](*args), pool_bwd_plain(*args)
+        ratios = []
+        for a, x in zip(got_k, got_p):
+            err = float((a - x).abs().max())
+            ratios.append(err / max(float(x.abs().max()), 1e-30))
+            results["pool_bwd"]["max_abs_err"] = max(
+                results["pool_bwd"]["max_abs_err"], err)
+        worst_ratio = max(worst_ratio, *ratios)
+        log(f"  pool_bwd {label}{site('pool_bwd', args)}: "
+            + " ".join(f"{r:.3g}" for r in ratios)
+            + f" (forward max abs err {fwd_err:.3g})")
+        check(max(ratios) <= POOL_BWD_TOL,
+              f"pool_bwd {label}{site('pool_bwd', args)}: {ratios}")
+    results["pool_bwd"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
+    # autograd asks only for the gradients it needs: d_v alone (the first
+    # kernel skips its scatter and the second kernel does not run) is the
+    # full call's d_v, which is summed in a fixed order
+    args = bwd_sites[0]
+    full = cuda_fns["pool_bwd"](*args)
+    part = cuda_fns["pool_bwd"](*args, need=(False, True, False, False))
+    check(part[0] is None and part[2] is None and part[3] is None
+          and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
+    log("  pool_bwd asked for d_v alone: equal to the full call's d_v")
+    deadline("pool backward vs plain")
+
+    # ---------------------------------------------------------------- 7
+    opt_k, opt_p = make_optimizer(tmodel), make_optimizer(pmodel)
+    step_k = make_train_step(tmodel, opt_k)
+    step_p = make_train_step(pmodel, opt_p)
+    kernels.reset_launches()
+    loss_k = float(step_k(batch))
+    train_launches = dict(kernels.LAUNCHES)
+    log(f"[7/10 train path] one train step at batch {TRAIN_BATCH}, "
+        f"{N_POINTS} points: launches {train_launches}")
+    check(train_launches == PER_TRAIN_STEP,
+          f"launches {train_launches}, expected {PER_TRAIN_STEP}")
+    with swapped(lambda n, entry, plain: plain):
+        loss_p = float(step_p(batch))
+    check(kernels.LAUNCHES == train_launches,
+          "the plain train step launched a kernel")
+    log(f"  loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "train loss differs")
+    grads_p = {n: p.grad for n, p in pmodel.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    rels, zero_leaves = {}, 0
+    for name, p in tmodel.named_parameters():
+        gk, gp = p.grad, grads_p[name]
+        check(gk is not None and bool(torch.isfinite(gk).all()),
+              f"gradient of {name} missing or not finite")
+        if zero_gradient_leaf(name):
+            zero_leaves += 1
+            check(max(float(gk.abs().max()), float(gp.abs().max()))
+                  <= 1e-5 * top, f"{name}: a zero gradient is not ~0")
+            continue
+        rels[name] = (float((gk - gp).abs().max())
+                      / max(float(gp.abs().max()), 1e-30))
+    worst = max(rels, key=rels.get)
+    log(f"  gradients: {len(rels)} leaves, error / max|plain| worst "
+        f"{rels[worst]:.3g} ({worst}), median "
+        f"{statistics.median(rels.values()):.3g} (bound {GRAD_TOL}); "
+        f"{zero_leaves} zero-gradient leaves below 1e-5 of the largest "
+        f"gradient {top:.3g}")
+    check(rels[worst] <= GRAD_TOL, f"gradient {worst}: {rels[worst]}")
+    stats_p = dict(pmodel.named_buffers())
+    bn_err = 0.0
+    for name, buf in tmodel.named_buffers():
+        if ".running_" in name:
+            want = stats_p[name]
+            bn_err = max(bn_err, float((buf - want).abs().max())
+                         / max(float(want.abs().max()), 1e-30))
+    log(f"  BatchNorm running statistics: error / max|plain| {bn_err:.3g}")
+    check(bn_err <= 1e-5, f"BatchNorm statistics differ: {bn_err}")
+    del pmodel, opt_p, step_p, grads_p
+    deadline("train path")
+
+    # ---------------------------------------------------------------- 8
+    for _ in range(N_TRAIN_WARMUP):
+        step_k(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, losses = [], []
+    t_all = time.perf_counter()
+    for _ in range(N_TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step_k(batch)))       # float() synchronises
+        per_step.append((time.perf_counter() - t) * 1e3)
+    total_s = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8/10 train timing] {N_TRAIN_STEPS} steps after "
+        f"{N_TRAIN_WARMUP + 1} warm-up, batch {TRAIN_BATCH}, {N_POINTS} "
+        f"points, one fixed batch: {total_s * 1e3 / N_TRAIN_STEPS:.3f} ms a "
+        f"step mean, median {statistics.median(per_step):.3f} ms (min "
+        f"{min(per_step):.3f}, max {max(per_step):.3f}), "
+        f"{N_TRAIN_STEPS / total_s:.3f} steps/s; peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    log("  loss per step: " + " ".join(f"{v:.6f}" for v in losses))
+    check(all(v == v for v in losses) and losses[-1] < losses[0],
+          "the loss did not fall over the timed steps")
+    profile_device(lambda i: step_k(batch), N_PROFILED_STEPS, "train step")
+    train_times = {}
+    train_sites = dict(tcalls, pool_bwd=bwd_sites)
+    for name in PER_TRAIN_STEP:
+        with (torch.inference_mode() if name != "pool_bwd"
+              else contextlib.nullcontext()):
+            train_times[name] = time_sites(name, train_sites[name])
+        t = train_times[name]
+        log(f"  {name} per train step: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+    deadline("train timing")
+
+    # ---------------------------------------------------------------- 9, 10
+    kernel_rows = []
+    for name in PER_TRAIN_STEP:
+        t, e = train_times[name], eval_times.get(name)
+        kernel_rows.append(dict(
+            name=name, route="cuda", **KERNEL_META[name],
+            launches=train_launches[name],
+            max_abs_err=results[name]["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
+            match=results[name]["match"],
+            per=f"train step, batch {TRAIN_BATCH}, {N_POINTS} points",
+            eval_forward=None if e is None else dict(
+                launches=eval_launches[name] // N_METRIC_PAIRS, ms=e["ms"],
+                plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+                bound_by=e["bound_by"])))
+    log("[9/10 kernels]")
     log(json.dumps({"kernels": kernel_rows}))
-    log(f"[7/7 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[10/10 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

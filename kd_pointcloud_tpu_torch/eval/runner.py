@@ -2,11 +2,11 @@
 scene pairs.
 
 Port of the forward step of kd_pointcloud_tpu/eval/runner.py
-(make_eval_forward / make_eval_metrics_step with with_2d=False). The 2-D
-metrics need the KITTI calibration, which the repository does not hold, and
-the multi-scale loss comes with the train-step slice. With no KITTI scenes
-on disk, ``synthetic_pairs`` makes seeded 8192-point pairs, as bench.py
-falls back to random clouds.
+(make_eval_forward / make_eval_metrics_step with with_2d=False): the 3-D
+metrics and the eval loss (the per-sample multi-scale loss through the pc1
+FPS chain). The 2-D metrics need the KITTI calibration, which the
+repository does not hold. With no KITTI scenes on disk, ``synthetic_pairs``
+makes seeded 8192-point pairs, as bench.py falls back to random clouds.
 """
 
 from __future__ import annotations
@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from ..device import use_full_fp32
+from ..losses import multi_scale_loss_per_sample
 from .metrics import evaluate_3d_torch
 
-METRIC_KEYS = ("epe3d", "acc3ds", "acc3dr", "outliers")
+METRIC_KEYS = ("epe3d", "acc3ds", "acc3dr", "outliers", "loss")
 
 
 def make_eval_forward(model):
@@ -37,23 +38,28 @@ def make_eval_forward(model):
 
 
 def make_eval_metrics_step(model):
-    """fn(pos1, pos2, norm1, norm2, flow) -> (B, 4) per-sample
-    [epe3d, acc3ds, acc3dr, outliers], computed on the model's device."""
-    fwd = make_eval_forward(model)
+    """fn(pos1, pos2, norm1, norm2, flow) -> (B, 5) per-sample
+    [epe3d, acc3ds, acc3dr, outliers, loss], computed on the model's
+    device, in eval mode without autograd."""
+    use_full_fp32()
 
     def step(pos1, pos2, norm1, norm2, flow):
-        pred = fwd(pos1, pos2, norm1, norm2)
+        model.eval()
         with torch.inference_mode():
-            return torch.stack(evaluate_3d_torch(pred, flow), dim=-1)
+            out = model(pos1, pos2, norm1, norm2)
+            loss = multi_scale_loss_per_sample(out["flows"], flow,
+                                               out["fps_idx1"])
+            return torch.stack([*evaluate_3d_torch(out["flows"][0], flow),
+                                loss], dim=-1)
 
     return step
 
 
 def evaluate_model(model, pairs: Iterable[Sequence[np.ndarray]]
                    ) -> Dict[str, float]:
-    """Mean EPE3D / ACC3DS / ACC3DR / Outliers3D over (pos1, pos2, norm1,
-    norm2, flow) pairs of (N, 3) arrays, each run at batch 1 on the model's
-    device; one host sync at the end."""
+    """Mean EPE3D / ACC3DS / ACC3DR / Outliers3D and eval loss over (pos1,
+    pos2, norm1, norm2, flow) pairs of (N, 3) arrays, each run at batch 1 on
+    the model's device; one host sync at the end."""
     device = next(model.parameters()).device
     step = make_eval_metrics_step(model)
     rows: List[torch.Tensor] = []

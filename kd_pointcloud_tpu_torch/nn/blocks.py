@@ -1,9 +1,9 @@
 """Basic building blocks on channels-last (B, N, C) tensors.
 
-Port of kd_pointcloud_tpu/nn/blocks.py: Dense, leaky, PointwiseBlock, MLP.
-Weights follow torch's Conv/Linear default init (kaiming_uniform(a=sqrt 5),
-i.e. U(+-1/sqrt(fan_in)) for kernel and bias), drawn from an explicit
-torch.Generator.
+Port of kd_pointcloud_tpu/nn/blocks.py: Dense, leaky (ops.leaky, slope 1 at
+0 as jax.nn.leaky_relu), PointwiseBlock, MLP. Weights follow torch's
+Conv/Linear default init (kaiming_uniform(a=sqrt 5), i.e. U(+-1/sqrt(fan_in))
+for kernel and bias), drawn from an explicit torch.Generator.
 """
 
 from __future__ import annotations
@@ -15,11 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LEAKY_RATE = 0.1
-
-
-def leaky(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, LEAKY_RATE)
+from ..ops import leaky
 
 
 class Dense(nn.Module):

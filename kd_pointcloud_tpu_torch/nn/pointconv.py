@@ -50,10 +50,23 @@ def contract_dense(grouped: torch.Tensor, weights: torch.Tensor,
 
 
 class _BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the trailing channel axis of (B, N, C)."""
+    """BatchNorm over the trailing channel axis of (B, N, C), with flax's
+    nn.BatchNorm semantics: in train mode it normalises with the batch's
+    biased variance and also moves running_var toward that biased variance
+    (torch's own BatchNorm moves it toward the unbiased one). Eval mode is
+    torch's, on the running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        flat = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            return super().forward(flat).reshape(x.shape)
+        var, mean = torch.var_mean(flat, dim=0, correction=0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        y = (flat - mean) * torch.rsqrt(var + self.eps) * self.weight
+        return (y + self.bias).reshape(x.shape)
 
 
 class PointConv(nn.Module):

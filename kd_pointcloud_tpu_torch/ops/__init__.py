@@ -8,11 +8,11 @@ from .fps import furthest_point_sample
 from .gather import gather_points, group_points
 from .interpolate import upsample_idw
 from .knn import knn_point, knn_point_dist
-from .pool_fused import pool_mlp_max
+from .pool_fused import leaky, pool_mlp_max
 from .warp import point_warp
 
 __all__ = [
     "square_distance", "furthest_point_sample", "gather_points",
     "group_points", "upsample_idw", "knn_point", "knn_point_dist",
-    "pool_mlp_max", "point_warp",
+    "leaky", "pool_mlp_max", "point_warp",
 ]

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fps": 0, "knn": 0, "pool": 0}
+LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
@@ -45,6 +45,10 @@ _SIGNATURES = {
     "kdpc_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # u, idx, v, w, bias, B, N1, N2, K, C, out, stream
     "kdpc_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # u, idx, v, w, bias, ct, B, N1, N2, K, C, d_u, d_v, d_w, d_bias,
+    # sel and share scratch, stream
+    "kdpc_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                      _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,15 +1,18 @@
 """Cost-volume pool: out[b, n] = max_k leaky(leaky(u[b, idx[b, n, k]] +
-v[b, n]) @ W^T + bias), forward.
+v[b, n]) @ W^T + bias), forward and backward.
 
 Port of kd_pointcloud_tpu/ops/pallas/pool_fused.py pool_mlp_max for the
 single-layer MLP every cross layer builds. ``pool_plain`` is the plain
-version (the math of ``_pool_ref``); the CUDA kernel is csrc/pool_fused.cu,
-which gathers the rows of the key table u itself, so the grouped
-(B, N, K, C) tensor never reaches device memory. The TPU's k-major layout and
-lane packing are not ported.
+version (the math of ``_pool_ref``), and its autograd is the plain version
+of the backward. The CUDA kernels are csrc/pool_fused.cu (forward) and
+csrc/pool_fused_bwd.cu (backward, as the JAX package's custom VJP): both
+gather the rows of the key table u themselves, so the grouped (B, N, K, C)
+tensor never reaches device memory, and the backward recomputes the
+activations instead of saving them. The TPU's k-major layout and lane
+packing are not ported.
 
-The kernel has no backward yet: a CUDA call whose result needs a gradient
-raises in backward instead of silently taking another path.
+``leaky`` is jax.nn.leaky_relu's: slope 1 at exactly 0, as the JAX kernel's
+``_leaky`` (F.leaky_relu's gradient there is 0.1).
 """
 
 from __future__ import annotations
@@ -21,16 +24,39 @@ from . import kernels
 from .gather import group_points
 
 KERNEL_C = (32, 64, 128, 256)
+KERNEL_BWD_K = 32     # the backward kernel's neighbour slots a query
 LEAKY_RATE = 0.1
+
+
+class _Leaky(torch.autograd.Function):
+    """F.leaky_relu's forward (one kernel) with jax.nn.leaky_relu's
+    gradient, where(x >= 0, g, 0.1 g)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.leaky_relu(x, LEAKY_RATE)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, LEAKY_RATE * g)
+
+
+def leaky(x: torch.Tensor) -> torch.Tensor:
+    """leaky_relu(x, 0.1) with JAX's gradient 1 at x == 0; without autograd
+    it is F.leaky_relu itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Leaky.apply(x)
+    return F.leaky_relu(x, LEAKY_RATE)
 
 
 def pool_plain(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
                weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """u (B, N2, C), idx (B, N1, K), v (B, N1, C), weight (C, C) in
     (out, in) layout, bias (C,) -> (B, N1, C)."""
-    h = F.leaky_relu(group_points(u, idx) + v[:, :, None, :], LEAKY_RATE)
-    h = F.leaky_relu(F.linear(h, weight, bias), LEAKY_RATE)
-    return h.amax(dim=2)
+    h = leaky(group_points(u, idx) + v[:, :, None, :])
+    return leaky(F.linear(h, weight, bias)).amax(dim=2)
 
 
 def _check(u, idx, v, weight, bias) -> None:
@@ -64,27 +90,77 @@ def _pool_cuda(u, idx, v, weight, bias):
     return out
 
 
+def _pool_bwd_cuda(u, idx, v, weight, bias, ct, need=(True,) * 4):
+    """(d_u, d_v, d_weight, d_bias) of pool_plain at these inputs for the
+    cotangent ct (B, N1, C), by the backward kernel; an entry whose flag in
+    need is False comes back None. d_u, d_weight and d_bias are sums of
+    float atomics: equal to the plain version's up to float32 rounding in
+    another order of summation."""
+    _check(u, idx, v, weight, bias)
+    kernels.check_tensor("pool_bwd ct", ct, torch.float32, 3)
+    kernels.check_on_card("pool_bwd", u, idx, v, weight, bias, ct)
+    B, N2, C = u.shape
+    _, N1, K = idx.shape
+    if C not in KERNEL_C or K > KERNEL_BWD_K or ct.shape != v.shape:
+        raise ValueError(f"pool backward kernel takes C in {KERNEL_C}, "
+                         f"K <= {KERNEL_BWD_K} and ct shaped like v; got "
+                         f"C={C}, K={K}, ct {tuple(ct.shape)}")
+    need_u, need_v, need_w, need_b = need
+    f32 = dict(dtype=torch.float32, device=u.device)
+    d_u = torch.zeros(B, N2, C, **f32) if need_u else None
+    d_v = torch.empty(B, N1, C, **f32) if need_v else None
+    want_wb = need_w or need_b
+    d_w = torch.zeros(C, C, **f32) if want_wb else None
+    d_b = torch.zeros(C, **f32) if want_wb else None
+    # the max mask's slots and share per (query, output channel), for d_w
+    sel = (torch.empty(B, N1, C, 2, dtype=torch.int32, device=u.device)
+           if want_wb else None)
+    share = torch.empty(B, N1, C, **f32) if want_wb else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    kernels.launch("pool_bwd", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(), ct.data_ptr(), B, N1,
+                   N2, K, C, ptr(d_u), ptr(d_v), ptr(d_w), ptr(d_b), ptr(sel),
+                   ptr(share))
+    return (d_u, d_v, d_w if need_w else None, d_b if need_b else None)
+
+
 class _PoolFunction(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
     @staticmethod
     def forward(ctx, u, idx, v, weight, bias):
+        ctx.save_for_backward(u, idx, v, weight, bias)
         return _pool_cuda(u, idx, v, weight, bias)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the cost-volume pool kernel has no backward yet; it comes with "
-            "the teacher train-step slice")
+        u, idx, v, weight, bias = ctx.saved_tensors
+        nu, _, nv, nw, nb = ctx.needs_input_grad
+        # autograd may hand over a view (a slice or a cat's part); the
+        # kernel takes contiguous rows
+        d_u, d_v, d_w, d_b = _pool_bwd_cuda(
+            u, idx, v, weight, bias, grad_out.contiguous(),
+            need=(nu, nv, nw, nb))
+        return d_u, None, d_v, d_w, d_b
+
+
+def _pool_card(u, idx, v, weight, bias):
+    """The pool on the card: forward kernel, backward kernel."""
+    return _PoolFunction.apply(u, idx, v, weight, bias)
 
 
 def pool_mlp_max(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
                  weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Fused cost-volume pool; see the module docstring for the math.
 
-    A CUDA tensor goes through the kernel, a CPU tensor through the plain
+    A CUDA tensor goes through the kernels, a CPU tensor through the plain
     version."""
     _check(u, idx, v, weight, bias)
     if u.device.type == "cuda":
-        return _PoolFunction.apply(u, idx, v, weight, bias)
+        return _pool_card(u, idx, v, weight, bias)
     if u.device.type == "cpu":
         return pool_plain(u, idx, v, weight, bias)
     raise ValueError(f"no pool for device {u.device}")

@@ -3,6 +3,7 @@ card-only pieces (chip_smoke.py, the ctypes kernel loader) import and refuse
 cleanly on a machine without a card."""
 
 import importlib.util
+import json
 import re
 import shutil
 import subprocess
@@ -10,6 +11,7 @@ import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (the port's test files import both frameworks)
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +19,7 @@ import kd_pointcloud_tpu_torch
 from kd_pointcloud_tpu_torch import device as port_device
 from kd_pointcloud_tpu_torch.models import BidPointFlowNet, tiny_config
 from kd_pointcloud_tpu_torch.ops import fps, kernels, knn, pool_fused
+from kd_pointcloud_tpu_torch.train import overfit
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(kd_pointcloud_tpu_torch.__file__).resolve().parent
@@ -28,6 +31,9 @@ FORBIDDEN = re.compile(
 def _port_files():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for name in ("train/overfit.py", "train/loop.py", "train/state.py",
+                 "losses/multiscale.py"):
+        assert PACKAGE / name in files
     return files
 
 
@@ -40,7 +46,7 @@ def test_port_imports_no_jax_flax_or_jax_package(path):
 
 def test_kernel_sources_are_plain_cuda():
     names = [p.name for p in kernels.sources()]
-    assert names == ["fps.cu", "knn.cu", "pool_fused.cu"]
+    assert names == ["fps.cu", "knn.cu", "pool_fused.cu", "pool_fused_bwd.cu"]
     for p in kernels.sources():
         src = p.read_text()
         assert "torch/extension.h" not in src
@@ -93,14 +99,50 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_pool_kernel_backward_raises():
-    with pytest.raises(NotImplementedError, match="train-step"):
-        pool_fused._PoolFunction.backward(None, torch.zeros(1))
+    """The backward kernel's launcher refuses CPU tensors, inside autograd's
+    backward too: no plain fallback on the way back."""
+    u = torch.zeros(1, 8, 32)
+    idx = torch.zeros(1, 8, 4, dtype=torch.int32)
+    args = (u, idx, u, torch.zeros(32, 32), torch.zeros(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pool_fused._pool_bwd_cuda(*args, torch.zeros(1, 8, 32))
+
+    class Ctx:
+        saved_tensors = args
+        needs_input_grad = (True, False, True, True, True)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        pool_fused._PoolFunction.backward(Ctx, torch.zeros(1, 8, 32))
 
 
 def test_launch_counters_start_and_reset():
     kernels.LAUNCHES["knn"] += 2
     kernels.reset_launches()
-    assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0}
+    assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0}
+
+
+def test_train_entry_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        overfit.main(["--tiny", "--steps", "1"])
+
+
+def test_train_entry_runs_on_cpu_without_jax():
+    """python -m kd_pointcloud_tpu_torch.train.overfit --device cpu, with
+    jax, flax and the JAX package made unimportable."""
+    code = ("import runpy, sys\n"
+            "for m in ('jax', 'flax', 'kd_pointcloud_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['overfit', '--device', 'cpu', '--tiny', '--points',"
+            " '256', '--batch', '1', '--steps', '2']\n"
+            "runpy.run_module('kd_pointcloud_tpu_torch.train.overfit',"
+            " run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["device"] == "cpu" and summary["steps"] == 2
+    assert np.isfinite(summary["loss_last"])
 
 
 def _load_chip_smoke():
@@ -114,6 +156,8 @@ def _load_chip_smoke():
 def test_chip_smoke_imports_without_a_card():
     mod = _load_chip_smoke()
     assert mod.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12}
+    assert mod.PER_TRAIN_STEP == {"fps": 1, "knn": 19, "pool": 12,
+                                  "pool_bwd": 12}
     assert set(mod.KERNEL_META) == set(kernels.LAUNCHES)
     for meta in mod.KERNEL_META.values():
         assert (ROOT / meta["source"]).exists()
@@ -131,6 +175,58 @@ def test_chip_smoke_ptxas_summary():
     assert _load_chip_smoke().ptxas_summary(text) == [
         "knn_kernel<32>: 96 registers, 16384 B static smem, "
         "spill stores 8 B, loads 4 B"]
+
+
+def test_chip_smoke_tie_case_and_zero_gradient_leaves():
+    """The smoke run's crafted tie case ties exactly on the CPU's plain
+    version, and its zero-gradient rule picks the 8 Dense biases that feed
+    the flow heads' BatchNorms."""
+    mod = _load_chip_smoke()
+    rng = np.random.RandomState(0)
+    u = torch.from_numpy(rng.standard_normal((2, 20, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 16, 32)).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 20, (2, 16, 8)).astype(np.int32))
+    w, b = torch.eye(32), torch.ones(32)
+    u, idx, v, w, b, _ = mod.tie_case(u, idx, v, w, b, v)
+    assert torch.equal(u[:, 0], u[:, 1]) and float(b[::4].abs().max()) == 0
+    h = pool_fused.group_points(u, idx) + v[:, :, None, :]
+    assert float(h[:, 4:8].abs().max()) == 0.0
+    ct = torch.zeros(2, 16, 32)
+    ct[:, :4] = 1.0                     # the two-row ties only
+    d_u = mod.pool_bwd_plain(u, idx, v, w, b, ct)[0]
+    assert float(d_u[:, 0].abs().max()) > 0
+    torch.testing.assert_close(d_u[:, 0], d_u[:, 1], rtol=0, atol=0)
+    model = BidPointFlowNet(tiny_config("teacher"), device="cpu")
+    zero = [n for n, _ in model.named_parameters()
+            if mod.zero_gradient_leaf(n)]
+    assert len(zero) == 8 and all(n.endswith("dense.bias") for n in zero)
+
+
+def test_chip_smoke_work_counts():
+    """The pool backward's operations count d_h0, d_w and d_bias only at
+    the max mask: every neighbour when all tie, one a (query, output
+    channel) when none do."""
+    mod = _load_chip_smoke()
+    B, N1, N2, K, C = 3, 50, 100, 32, 32
+    u = torch.zeros(B, N2, C)
+    idx = torch.zeros(B, N1, K, dtype=torch.int32)
+    v = torch.zeros(B, N1, C)
+    args = (u, idx, v, torch.zeros(C, C), torch.zeros(C))
+    ops, nbytes = mod.work("pool", args)
+    assert ops == B * N1 * K * (2 * C * C + 5 * C)
+    dense = B * N1 * K * (2 * C * C + 10 * C)
+    ops_b, bytes_b = mod.work("pool_bwd", args + (v,))
+    assert ops_b == dense + B * N1 * K * C * (4 * C + 1)
+    assert bytes_b > nbytes
+    rng = np.random.default_rng(0)
+    untied = (torch.from_numpy(rng.standard_normal((B, N2, C), np.float32)),
+              torch.from_numpy(rng.permuted(
+                  np.tile(np.arange(N2, dtype=np.int32), (B, N1, 1)),
+                  axis=2)[..., :K].copy()),
+              v, torch.from_numpy(rng.standard_normal((C, C), np.float32)),
+              torch.zeros(C))
+    ops_u, _ = mod.work("pool_bwd", untied + (v,))
+    assert ops_u == dense + B * N1 * C * (4 * C + 1)
 
 
 @pytest.mark.parametrize("alone", [False, True])
