@@ -1,8 +1,10 @@
 """Weight bridge: the JAX package's variables -> the port's state_dict.
 
 ``params_from_jax`` takes a {"params": ..., "batch_stats": ...} tree of
-nested dicts of numpy arrays (flax's layout, for the whole BidPointFlowNet
-or any module of it) and returns the state_dict of the port's counterpart.
+nested dicts of numpy arrays (flax's layout, for the whole BidPointFlowNet,
+the Bridge, or any module of either) and returns the state_dict of the
+port's counterpart; the Bridge's flax names (mixed_layer, out_src,
+out_target) are the port's attribute names.
 Flax module names map onto the port's attribute names; Dense kernels (in,
 out) become (out, in) weights, with the PointConv kernel's c-major (C*W)
 input order kept; BatchNorm scale, bias, mean and var become weight, bias,

@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` expose a plain C interface. They are compiled by
-one ``nvcc`` call into one shared library, at first use, into
+The sources under ``csrc/`` expose a plain C interface. At first use each is
+compiled by its own ``nvcc`` process, all started together, and one more
+``nvcc`` call links the objects into one shared library in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-and bound with ``ctypes``. No PyTorch header is included, so the build takes
+bound with ``ctypes``. No PyTorch header is included, so the build takes
 seconds, not the minutes a ``torch.utils.cpp_extension`` build would.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, launches
@@ -31,9 +32,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0}
+LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0, "fps_pruned": 0,
+            "cross_pool": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
@@ -49,6 +52,10 @@ _SIGNATURES = {
     # sel and share scratch, stream
     "kdpc_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                       _P, _P, _P, _P),
+    # planes, pidx, centers, radii, xyz, B, N, M, out_idx, dirty, stream
+    "kdpc_fps_pruned": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
+    "kdpc_cross_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -79,9 +86,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile every source into one library (once per content hash)."""
+    """Compile every source into one library (once per content hash): one
+    nvcc process a source, all at once, then one link."""
     srcs = sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
@@ -92,16 +100,36 @@ def build() -> Path:
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True,
                           log=log.read_text() if log.exists() else "")
         return out
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    work = BUILD_DIR / f"{out.stem}.tmp{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in srcs:
+        obj, text = work / f"{src.stem}.o", work / f"{src.stem}.txt"
+        with open(text, "w") as fd:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, text, subprocess.Popen(
+                cmd, stdout=fd, stderr=subprocess.STDOUT)))
+    logs = []
+    for cmd, _, text, proc in jobs:
+        rc = proc.wait()
+        logs.append(text.read_text())
+        if rc != 0:
+            for *_, other in jobs:
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{logs[-1]}")
+    tmp = work / out.name
+    cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(j[1]) for j in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{text}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    seconds = time.perf_counter() - t0
     tmp.replace(out)
+    shutil.rmtree(work, ignore_errors=True)
+    text = "".join(logs)
     log.write_text(text)
     BUILD_INFO.update(path=str(out), seconds=seconds, cached=False, log=text)
     return out

@@ -6,12 +6,15 @@ Adam(lr=1e-3, wd=1e-4), no scheduler inside the horizon) over a fixed list
 of batches, recording the loss and the train-mode l0 EPE3D of every step.
 
     python -m kd_pointcloud_tpu_torch.train.overfit [--npz PATH] \\
-        [--steps 20] [--batch 3] [--points 8192] [--device cuda]
+        [--init PATH] [--steps 20] [--batch 3] [--points 8192] \\
+        [--device cuda]
 
 is the counterpart of scripts/overfit_convergence.py. It trains the teacher
-from seeded random weights on the batches of an .npz in the overfit
-fixture's layout (b{i}_pos1 / b{i}_pos2 / b{i}_flow) when given one, and
-otherwise on one batch of seeded synthetic pairs (eval.synthetic_pairs),
+from seeded random weights, or from --init (a reference .pth, a flax
+.msgpack of the JAX package or a checkpoint of the port), on the batches of
+an .npz in the overfit fixture's layout (b{i}_pos1 / b{i}_pos2 / b{i}_flow)
+when given one, and otherwise on one batch of seeded synthetic pairs
+(eval.synthetic_pairs),
 with the reference recipe's Adam (lr 1e-3, weight decay 1e-4). It runs on the
 card unless told --device cpu, and raises when no card is present.
 """
@@ -101,11 +104,26 @@ def synthetic_batches(n_batches: int, batch: int, npoints: int, seed: int,
             for i in range(n_batches)]
 
 
+def load_init(path: str) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from a reference .pth, a JAX package .msgpack
+    or a port checkpoint (by file name)."""
+    from ..models import load_torch_checkpoint
+    from .checkpoints import load_checkpoint, load_msgpack_checkpoint
+
+    if path.endswith(".pth"):
+        return load_torch_checkpoint(path)
+    if path.endswith(".msgpack"):
+        return load_msgpack_checkpoint(path)
+    return load_checkpoint(path)["model"]
+
+
 def main(argv=None) -> dict:
     from ..models import PRESETS, BidPointFlowNet, tiny_config
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--npz", help="batches in the overfit fixture's layout")
+    ap.add_argument("--init", help="initial weights: a reference .pth, a "
+                    "JAX package .msgpack or a checkpoint of the port")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=3)
     ap.add_argument("--points", type=int, default=8192)
@@ -124,6 +142,8 @@ def main(argv=None) -> dict:
         cfg = PRESETS[args.preset]
     model = BidPointFlowNet(cfg, device=device,
                             generator=torch.Generator().manual_seed(args.seed))
+    if args.init:
+        model.load_state_dict(load_init(args.init), strict=True)
     if args.npz:
         batches = load_overfit_batches(args.npz, device)
     else:
@@ -133,7 +153,8 @@ def main(argv=None) -> dict:
                                      log_every=10)
     if args.out:
         np.savez(args.out, losses=losses, epes=epes, n_steps=args.steps)
-    summary = dict(device=str(device), preset=cfg.name, steps=args.steps,
+    summary = dict(device=str(device), preset=cfg.name, init=args.init,
+                   steps=args.steps,
                    loss_first=losses[0], loss_last=losses[-1],
                    epe_first=epes[0], epe_last=epes[-1])
     print(json.dumps(summary), flush=True)

@@ -18,13 +18,14 @@ import torch
 import kd_pointcloud_tpu_torch
 from kd_pointcloud_tpu_torch import device as port_device
 from kd_pointcloud_tpu_torch.models import BidPointFlowNet, tiny_config
+from kd_pointcloud_tpu_torch.attic import cross_pool, fps_pruned
 from kd_pointcloud_tpu_torch.ops import fps, kernels, knn, pool_fused
 from kd_pointcloud_tpu_torch.train import overfit
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(kd_pointcloud_tpu_torch.__file__).resolve().parent
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|kd_pointcloud_tpu|torch\.utils\."
+    r"^\s*(import|from)\s+(jax|flax|kd_pointcloud_tpu|attic|torch\.utils\."
     r"cpp_extension)(\.|\s|$)", re.M)
 
 
@@ -32,7 +33,10 @@ def _port_files():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for name in ("train/overfit.py", "train/loop.py", "train/state.py",
-                 "losses/multiscale.py"):
+                 "losses/multiscale.py", "losses/kd.py", "models/bridge.py",
+                 "models/torch_import.py", "train/checkpoints.py",
+                 "train/distill.py", "train/distill_experiment.py",
+                 "attic/fps_pruned.py", "attic/cross_pool.py"):
         assert PACKAGE / name in files
     return files
 
@@ -46,13 +50,16 @@ def test_port_imports_no_jax_flax_or_jax_package(path):
 
 def test_kernel_sources_are_plain_cuda():
     names = [p.name for p in kernels.sources()]
-    assert names == ["fps.cu", "knn.cu", "pool_fused.cu", "pool_fused_bwd.cu"]
+    assert names == ["cross_pool.cu", "fps.cu", "fps_pruned.cu", "knn.cu",
+                     "pool_fused.cu", "pool_fused_bwd.cu"]
     for p in kernels.sources():
         src = p.read_text()
         assert "torch/extension.h" not in src
         assert 'extern "C"' in src
-        assert "kd_pointcloud_tpu/ops/pallas/" in src   # what it replaces
+        # what it replaces
+        assert re.search(r"(kd_pointcloud_tpu/ops/pallas|attic)/\w+\.py", src)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kernels.LINK_FLAGS
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "kernels")
 
 
@@ -86,6 +93,12 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pool_fused._pool_cuda(u, torch.zeros(1, 8, 4, dtype=torch.int32), u,
                               torch.zeros(32, 32), torch.zeros(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        fps_pruned._fps_pruned_cuda(torch.zeros(1, 1024, 3), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cross_pool._cross_pool_cuda(u, u, torch.zeros(1, 8, 4,
+                                                      dtype=torch.int32),
+                                    [torch.zeros(32, 32)], [torch.zeros(32)])
 
 
 def test_wrappers_refuse_other_devices():
@@ -118,7 +131,8 @@ def test_pool_kernel_backward_raises():
 def test_launch_counters_start_and_reset():
     kernels.LAUNCHES["knn"] += 2
     kernels.reset_launches()
-    assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0}
+    assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0,
+                                "fps_pruned": 0, "cross_pool": 0}
 
 
 def test_train_entry_raises_without_a_card(monkeypatch):
@@ -155,9 +169,16 @@ def _load_chip_smoke():
 
 def test_chip_smoke_imports_without_a_card():
     mod = _load_chip_smoke()
-    assert mod.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12}
+    zero = {"fps_pruned": 0, "cross_pool": 0}
+    assert mod.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12,
+                               "pool_bwd": 0, **zero}
     assert mod.PER_TRAIN_STEP == {"fps": 1, "knn": 19, "pool": 12,
-                                  "pool_bwd": 12}
+                                  "pool_bwd": 12, **zero}
+    # the frozen teacher's forward adds no backward
+    assert mod.PER_KD_STEP == {"fps": 2, "knn": 38, "pool": 24,
+                               "pool_bwd": 12, **zero}
+    for per in (mod.PER_FORWARD, mod.PER_TRAIN_STEP, mod.PER_KD_STEP):
+        assert set(per) == set(kernels.LAUNCHES)
     assert set(mod.KERNEL_META) == set(kernels.LAUNCHES)
     for meta in mod.KERNEL_META.values():
         assert (ROOT / meta["source"]).exists()
@@ -175,6 +196,26 @@ def test_chip_smoke_ptxas_summary():
     assert _load_chip_smoke().ptxas_summary(text) == [
         "knn_kernel<32>: 96 registers, 16384 B static smem, "
         "spill stores 8 B, loads 4 B"]
+
+
+@pytest.mark.parametrize("kernel", ["fps_kernel", "fps_pruned_kernel",
+                                    "knn_kernel", "pool_kernel",
+                                    "pool_bwd_kernel", "pool_bwd_dw_kernel",
+                                    "cross_pool_kernel"])
+def test_chip_smoke_names_each_kernel_apart(kernel):
+    """No kernel's name is read as the tail of another's, in ptxas's
+    mangled names and in the profiler's demangled ones."""
+    mod = _load_chip_smoke()
+    name = kernel[:-len("_kernel")]
+    mangled = (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi64EEEvPKfPKiS2_"
+               "S2_S2_iiiiPf")
+    text = (f"ptxas info    : Compiling entry function '{mangled}' for "
+            "'sm_90a'\nptxas info    : Used 40 registers, 0 bytes smem\n")
+    assert mod.ptxas_summary(text) == [
+        f"{kernel}<64>: 40 registers, 0 B static smem, "]
+    demangled = (f"void (anonymous namespace)::{kernel}<64>(float const*, "
+                 "int const*, float*)")
+    assert re.search(mod.KERNEL_RE + "<", demangled).group(1) == name
 
 
 def test_chip_smoke_tie_case_and_zero_gradient_leaves():
@@ -227,6 +268,30 @@ def test_chip_smoke_work_counts():
               torch.zeros(C))
     ops_u, _ = mod.work("pool_bwd", untied + (v,))
     assert ops_u == dense + B * N1 * C * (4 * C + 1)
+
+
+def test_chip_smoke_work_counts_attic_kernels():
+    """Pruned FPS counts its sphere tests every round and FPS's work only
+    at the sub-block updates the data needed; the cross pool at L = 1
+    counts what the pool counts, and each further layer 2 C^2 + 2 C a
+    (query, neighbour) more."""
+    mod = _load_chip_smoke()
+    B, N, m = 2, 8192, 2048
+    xyz = torch.zeros(B, N, 3)
+    full, nbytes = mod.work("fps", (xyz, m))
+    ops0, bytes0 = mod.work("fps_pruned", (xyz, m, 0))
+    assert bytes0 == nbytes and ops0 == B * (m - 1) * (N // 128) * 15
+    ops_all, _ = mod.work("fps_pruned", (xyz, m, B * (m - 1) * (N // 128)))
+    assert ops_all == ops0 + full
+    Bp, N1, N2, K, C = 2, 40, 50, 16, 64
+    u, v = torch.zeros(Bp, N2, C), torch.zeros(Bp, N1, C)
+    idx = torch.zeros(Bp, N1, K, dtype=torch.int32)
+    w, b = torch.zeros(C, C), torch.zeros(C)
+    ops1, bytes1 = mod.work("cross_pool", (u, v, idx, [w], [b]))
+    assert (ops1, bytes1) == mod.work("pool", (u, idx, v, w, b))
+    ops2, bytes2 = mod.work("cross_pool", (u, v, idx, [w, w], [b, b]))
+    assert ops2 - ops1 == Bp * N1 * K * (2 * C * C + 2 * C)
+    assert bytes2 - bytes1 == (C * C + C) * 4
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -30,6 +30,7 @@ import torch
 from kd_pointcloud_tpu.models.torch_import import load_torch_checkpoint
 from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                             params_from_jax)
+from kd_pointcloud_tpu_torch.train import overfit
 from kd_pointcloud_tpu_torch.train.overfit import (load_overfit_batches,
                                                    run_trajectory)
 
@@ -92,6 +93,25 @@ def test_first_train_step_matches_reference_trainer():
     losses, epes = _trajectory(1)
     assert abs(losses[0] - z["losses"][0]) <= 1e-5 * z["losses"][0]
     assert abs(epes[0] - z["epes"][0]) <= 1e-5 * z["epes"][0]
+
+
+def test_entry_from_the_reference_pth_matches_first_step():
+    """python -m kd_pointcloud_tpu_torch.train.overfit --init
+    overfit_init.pth: the port's own .pth reader carries the fixture's init
+    (no JAX on the way), and step 1 gives the reference trainer's loss and
+    EPE3D within 1e-5 relative."""
+    z = np.load(FIXTURES / "overfit.npz")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        summary = overfit.main(["--device", "cpu", "--steps", "1",
+                                "--npz", str(FIXTURES / "overfit.npz"),
+                                "--init", str(FIXTURES / "overfit_init.pth")])
+    finally:
+        torch.set_num_threads(threads)
+    assert summary["init"].endswith("overfit_init.pth")
+    assert abs(summary["loss_first"] - z["losses"][0]) <= 1e-5 * z["losses"][0]
+    assert abs(summary["epe_first"] - z["epes"][0]) <= 1e-5 * z["epes"][0]
 
 
 RUNS = {"port": lambda n: _trajectory(n),
