@@ -18,9 +18,9 @@ printing flushed lines as it goes:
      reports per kernel;
   3. kernels against plain versions, on the inputs that one eval forward
      hands each kernel (1 FPS, 19 kNN, 12 pool call sites): FPS
-     bit-identical, kNN rows with equal index sets >= 99.9 % at every site
-     (rows that differ: sorted recomputed distances within 1e-5 relative),
-     pool within 1e-4 x max|plain|;
+     bit-identical, kNN bit-identical (indices in order and d2) at every
+     site, with its launch plan (lanes a query, queries a block), pool
+     within 1e-4 x max|plain|;
   4. the eval path: evaluate_model over 3 seeded synthetic pairs with
      seeded random weights, launch counts per forward (FPS 1, kNN 19,
      pool 12), flows[0..3] against the same model with every kernel swapped
@@ -32,13 +32,15 @@ printing flushed lines as it goes:
      device memory, then 2 pairs under torch.profiler: device time a pair
      by kernel name, launches a pair and the device's busy share;
   6. pool backward against plain: the 12 pool call sites of a batch-3
-     train forward, a seeded cotangent, d_u / d_v / d_weight / d_bias of the
+     and the 12 of a batch-8 (the KD step's) train forward, seeded
+     cotangents, d_u / d_v / d_weight / d_bias of the
      kernel against torch.autograd of pool_plain within POOL_BWD_TOL of
      each output's max |plain| (the kernel sums d_u, d_weight and d_bias
      with float atomics, in an order that changes from run to run), and a
      crafted tie case per width (equal rows of u, repeated neighbours, zero
      pre-activations) that must split the cotangent as the plain version,
-     and a ragged case per width (K = 16, N1 off every tile);
+     and a ragged case per width (K = 16, N1 off every tile); d_v asked
+     alone bit-equal to the full call's at both batches;
   7. the train path: one train step of the teacher (seed 0) through the
      kernels and of its copy through the plain versions, on the same
      batch: loss within 1e-5 relative, every gradient leaf within GRAD_TOL
@@ -49,7 +51,8 @@ printing flushed lines as it goes:
      (median, mean), steps/s, peak device memory, the loss of every step
      (it must fall: a sanity check, not a convergence claim), 2 more steps
      under torch.profiler as in phase 5, and each kernel at the step's
-     call sites with CUDA events beside its plain version and its bound;
+     call sites with CUDA events beside its plain version and its bound
+     (kNN first held bit for bit against knn_plain at each site);
   9. the attic kernels, on no path, against their plain versions: pruned
      FPS at 8192 -> 2048 on the stacked clouds of the eval, train and KD
      forwards (batches 2, 6, 16) and a clustered cloud, bit-identical to
@@ -68,7 +71,8 @@ printing flushed lines as it goes:
      and statistics bit-unchanged, and the launches of the step (FPS 2,
      kNN 38, pool 24, pool_bwd 12: the frozen teacher adds no backward);
  11. KD timing: 10 steps after a warm-up as in phase 8, 2 more under
-     torch.profiler, and each kernel at the KD step's call sites;
+     torch.profiler, and each kernel at the KD step's call sites (kNN
+     bit-identical at each, as in phase 8);
  12. one bridge KD step (a 512-channel Bridge on the teacher's layer-3
      features, its own Adam) through the kernels and through the plain
      versions: loss within 1e-5 relative, student and bridge gradients
@@ -140,22 +144,33 @@ PER_KD_STEP = {"fps": 2, "knn": 38, "pool": 24, "pool_bwd": 12,
 PATH_KERNELS = ("fps", "knn", "pool", "pool_bwd")
 # a kernel's name, not the tail of a longer one (cross_pool_kernel is not
 # pool_kernel); mangled names put the name's length (digits) before it
-KERNEL_RE = (r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_dw|pool_bwd|pool"
-             r"|cross_pool)_kernel")
+KERNEL_RE = (r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_mask|pool_bwd"
+             r"|pool|cross_pool)_kernel")
 
 KERNEL_META = {
     "fps": dict(source="kd_pointcloud_tpu_torch/csrc/fps.cu",
-                replaces="kd_pointcloud_tpu/ops/pallas/fps_pallas.py:212"),
+                replaces="kd_pointcloud_tpu/ops/pallas/fps_pallas.py:212",
+                design="first: one block a cloud, a serial chain of rounds"),
     "knn": dict(source="kd_pointcloud_tpu_torch/csrc/knn.cu",
-                replaces="kd_pointcloud_tpu/ops/pallas/knn_fused.py:319"),
+                replaces="kd_pointcloud_tpu/ops/pallas/knn_fused.py:319",
+                design="second: L lanes a query (knn_plan), one sorted list "
+                       "a group with an entry a lane, ballot-ordered exact "
+                       "merge"),
     "pool": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused.cu",
-                 replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:173"),
+                 replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:173",
+                 design="first: a panel of w a block, one (query, channel) "
+                        "a thread"),
     "pool_bwd": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused_bwd.cu",
-                     replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:269"),
+                     replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:269",
+                     design="second: register-tiled recompute of p, mask "
+                            "kernel with d_w / d_bias fused, mask-indexed "
+                            "d_h0"),
     "fps_pruned": dict(source="kd_pointcloud_tpu_torch/csrc/fps_pruned.cu",
-                       replaces="attic/fps_pruned.py:329"),
+                       replaces="attic/fps_pruned.py:329",
+                       design="first: bounding-sphere pruning of sub-blocks"),
     "cross_pool": dict(source="kd_pointcloud_tpu_torch/csrc/cross_pool.cu",
-                       replaces="attic/cross_pool.py:90"),
+                       replaces="attic/cross_pool.py:90",
+                       design="first: L layers in shared memory"),
 }
 
 
@@ -409,7 +424,7 @@ def main() -> int:
     from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                                 Bridge)
     from kd_pointcloud_tpu_torch.ops import fps as fps_mod
-    from kd_pointcloud_tpu_torch.ops import group_points, kernels
+    from kd_pointcloud_tpu_torch.ops import kernels
     from kd_pointcloud_tpu_torch.ops import knn as knn_mod
     from kd_pointcloud_tpu_torch.ops import pool_fused as pool_mod
     from kd_pointcloud_tpu_torch.train import (apply_frozen, best_checkpoint,
@@ -522,6 +537,24 @@ def main() -> int:
                 f"C={u.shape[2]}")
 
     results = {n: dict(max_abs_err=0.0) for n in cuda_fns}
+
+    def knn_identical(args):
+        """The kNN kernel against knn_plain at one call site: indices equal
+        in order and d2 equal, bit for bit."""
+        k, xyz, q = args
+        with torch.inference_mode():
+            (dk, ik), (dp, ip) = (cuda_fns["knn"](*args),
+                                  plain_fns["knn"](*args))
+        lanes, qpb = knn_mod.knn_plan(q.shape[0], q.shape[1], xyz.shape[1],
+                                      k)
+        same_idx, same_d2 = torch.equal(ik, ip), torch.equal(dk, dp)
+        results["knn"]["max_abs_err"] = max(results["knn"]["max_abs_err"],
+                                            float((dk - dp).abs().max()))
+        log(f"  knn {site('knn', args)} (lanes {lanes}, {qpb} queries a "
+            f"block): indices equal in order {same_idx}, d2 equal "
+            f"{same_d2}")
+        check(same_idx and same_d2,
+              f"knn {site('knn', args)} is not bit-identical to knn_plain")
     with torch.inference_mode():
         for args in calls["fps"]:
             k_out, p_out = cuda_fns["fps"](*args), plain_fns["fps"](*args)
@@ -530,32 +563,10 @@ def main() -> int:
             check(bad == 0, "fps kernel is not bit-identical to fps_plain")
         results["fps"]["match"] = "bit-identical"
 
-        worst_rows = 1.0
         for args in calls["knn"]:
-            k, xyz, q = args
-            (dk, ik), (dp, ip) = cuda_fns["knn"](*args), plain_fns["knn"](*args)
-            same_rows = (ik.sort(-1).values == ip.sort(-1).values).all(-1)
-            frac = float(same_rows.float().mean())
-            worst_rows = min(worst_rows, frac)
-            err = float((dk - dp).abs().max())
-            results["knn"]["max_abs_err"] = max(
-                results["knn"]["max_abs_err"], err)
-            rel = 0.0
-            if not bool(same_rows.all()):
-                def recomputed(i):
-                    d = ((group_points(xyz, i) - q[:, :, None]) ** 2).sum(-1)
-                    return d[~same_rows].sort(-1).values
-                a, b = recomputed(ik), recomputed(ip)
-                rel = float(((a - b).abs()
-                             / a.abs().clamp_min(1e-30)).max())
-            log(f"  knn {site('knn', args)}: index-set rows equal "
-                f"{frac:.6f}, order equal "
-                f"{float((ik == ip).all(-1).float().mean()):.6f}, "
-                f"max |d2 kernel - plain| {err:.3g}, differing rows' "
-                f"recomputed d2 rel {rel:.3g}")
-            check(frac >= 0.999, f"knn {site('knn', args)}: {frac}")
-            check(rel <= 1e-5, f"knn {site('knn', args)}: rel {rel}")
-        results["knn"]["match"] = f"index-set rows >= {worst_rows:.6f}"
+            knn_identical(args)
+        results["knn"]["match"] = ("bit-identical (index order and d2) at "
+                                   "every eval, train and KD site")
 
         worst_ratio = 0.0
         for args in calls["pool"]:
@@ -570,7 +581,7 @@ def main() -> int:
             check(err <= 1e-4 * scale, f"pool {site('pool', args)}: {err}")
         results["pool"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
     torch.cuda.synchronize()
-    log("  verdict: fps bit-identical, knn and pool within bounds")
+    log("  verdict: fps and knn bit-identical, pool within bounds")
     deadline("kernels vs plain")
 
     # ---------------------------------------------------------------- 4
@@ -694,17 +705,32 @@ def main() -> int:
     del rec_model
     got = {n: len(c) for n, c in tcalls.items()}
     check(got == want_sites, f"call sites per train forward {got}")
+    # the KD step's batch, and the pool sites of a batch-8 train forward
+    # (the student has the teacher's shapes)
+    kd_batch = synthetic_batches(1, KD_BATCH, N_POINTS, SEED + 2, "cuda")[0]
+    kd_pool = {n: [] for n in points}
+    rec_model = copy.deepcopy(tmodel).train()
+    with swapped(recorder(kd_pool)), torch.no_grad():
+        rec_model(kd_batch["pos1"], kd_batch["pos2"], kd_batch["norm1"],
+                  kd_batch["norm2"])
+    del rec_model
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bwd_sites = [(*args, torch.randn(args[2].shape, device="cuda",
                                      generator=gen))
                  for args in tcalls["pool"]]
+    kd_bwd_sites = [(*args, torch.randn(args[2].shape, device="cuda",
+                                        generator=gen))
+                    for args in kd_pool["pool"]]
+    check(len(kd_bwd_sites) == PER_FORWARD["pool"],
+          f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
     log(f"[6/15 pool backward vs plain] {len(bwd_sites)} pool call sites of "
-        f"a batch-{TRAIN_BATCH} train forward, seeded cotangent; error / "
-        f"max|plain| of d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
+        f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
+        f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
+        f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
     widths = {}
     for args in bwd_sites:
         widths.setdefault(args[0].shape[2], args)
-    cases = ([("", a) for a in bwd_sites]
+    cases = ([("", a) for a in bwd_sites + kd_bwd_sites]
              + [("tie case ", tie_case(*a)) for a in widths.values()]
              + [("ragged case ", ragged_case(*a)) for a in widths.values()])
     worst_ratio = 0.0
@@ -725,15 +751,17 @@ def main() -> int:
         check(max(ratios) <= POOL_BWD_TOL,
               f"pool_bwd {label}{site('pool_bwd', args)}: {ratios}")
     results["pool_bwd"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
-    # autograd asks only for the gradients it needs: d_v alone (the first
-    # kernel skips its scatter and the second kernel does not run) is the
-    # full call's d_v, which is summed in a fixed order
-    args = bwd_sites[0]
-    full = cuda_fns["pool_bwd"](*args)
-    part = cuda_fns["pool_bwd"](*args, need=(False, True, False, False))
-    check(part[0] is None and part[2] is None and part[3] is None
-          and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
-    log("  pool_bwd asked for d_v alone: equal to the full call's d_v")
+    # autograd asks only for the gradients it needs: d_v alone (the mask
+    # kernel skips d_w and d_bias, the second kernel its scatter into d_u)
+    # is the full call's d_v, which is summed in a fixed order
+    for args in (bwd_sites[0], kd_bwd_sites[0]):
+        full = cuda_fns["pool_bwd"](*args)
+        part = cuda_fns["pool_bwd"](*args, need=(False, True, False, False))
+        check(part[0] is None and part[2] is None and part[3] is None
+              and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
+    log("  pool_bwd asked for d_v alone: equal to the full call's d_v "
+        f"(batches {TRAIN_BATCH} and {KD_BATCH})")
+    del kd_bwd_sites, kd_pool
     deadline("pool backward vs plain")
 
     # ---------------------------------------------------------------- 7
@@ -795,7 +823,11 @@ def main() -> int:
         profile_device(lambda i: step(batch), N_PROFILED_STEPS, what)
 
     def time_path(sites, what):
-        """Each path kernel timed at its call sites of one step."""
+        """Each path kernel timed at its call sites of one step; the kNN
+        kernel first held bit for bit against knn_plain at each of them
+        (the launch plan changes with B * S)."""
+        for args in sites["knn"]:
+            knn_identical(args)
         times = {}
         for name in PATH_KERNELS:
             with (torch.inference_mode() if name != "pool_bwd"
@@ -813,7 +845,6 @@ def main() -> int:
     deadline("train timing")
 
     # ---------------------------------------------------------------- 9
-    kd_batch = synthetic_batches(1, KD_BATCH, N_POINTS, SEED + 2, "cuda")[0]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     clustered = (torch.randn(1, 16, 1, 3, device="cuda", generator=gen) * 20
                  + torch.randn(1, 16, N_POINTS // 16, 3, device="cuda",

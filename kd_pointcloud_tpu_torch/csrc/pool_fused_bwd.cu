@@ -16,43 +16,61 @@
 //
 // Replaces the TPU kernel kd_pointcloud_tpu/ops/pallas/pool_fused.py
 // _pool_bwd_pallas (_bwd_kernel). Like it, the activations are recomputed,
-// not saved: leaky' needs only the sign of a pre-activation, which leaky
-// keeps. The TPU kernel read the gathered rows and handed d_g (B, K, N, C)
-// to XLA's gather VJP; here the kernel gathers u itself, so d_u is a
-// scatter-add over idx. Plain version: ops/pool_fused.py pool_plain under
-// torch.autograd.
+// not saved: leaky' needs only the sign of a pre-activation. The TPU kernel
+// read the gathered rows and handed d_g (B, K, N, C) to XLA's gather VJP;
+// here the kernels gather u themselves, so d_u is a scatter-add over idx.
+// Plain version: ops/pool_fused.py pool_plain under torch.autograd;
+// pool_bwd_masked there is this file's arithmetic in torch.
 //
 // What bounds it on an H100: operations. The forward's p must be recomputed
-// densely, 2 K C^2 flops a query; d_p is nonzero only in the max mask, one
+// densely, 2 K C^2 flops a query. d_p is nonzero only in the max mask, one
 // neighbour a (query, output channel) outside exact ties, so d_h0 = d_p w
-// and d_w += d_p^T h0 need about 2 C^2 each. Against (2K + 4C) * 4 bytes a
-// query, in fp32 on the CUDA cores: about 2.0 GFLOP, 0.03 ms, at K = 32,
-// C = 32, B x N1 = 3 x 8192. Two kernels, one launch sequence:
+// and d_w += d_p^T h0 take about 2 C^2 each, not 2 K C^2. Two kernels:
 //
-// 1. pool_bwd_kernel: a block walks a tile of queries, TQ = 256 / C at a
-//    time, each in KP = 32 neighbour slots (K <= 32; slots >= K are
-//    masked). It gathers h0 into shared memory, then for each panel of CO =
-//    min(C, 128) output channels (one panel up to C = 128, two at 256: the
-//    whole 256 kB of w would not fit the 227 kB a block may use) it stages
-//    the panel of w, recomputes p, forms the max mask and d_p per (query,
-//    output channel) -- the mask of channel o needs only channel o's p over
-//    the K neighbours -- and adds d_p @ w_panel into d_h0, which each
-//    thread holds in registers for one (query, input channel) over the 32
-//    slots. d_v is then a register sum; d_u takes atomicAdd (rows of u are
-//    shared by many queries). The mask leaves for d_w a (B, N1, C) scratch:
-//    per (query, output channel) the bits of its masked slots, the bits of
-//    those whose p < 0 (leaky' = 0.1), and the cotangent's share ct / count
-//    -- K times smaller than a dense d_p.
-// 2. pool_bwd_dw_kernel: d_w = d_p^T h0 and d_bias = sums of d_p, only at
-//    the masked slots: a block owns a tile of d_w (at most 64 x 64) and a
-//    range of queries, stages their h0 by gathering u, adds share * leaky'
-//    * h0[masked slot] per (query, output channel) in registers, and adds
-//    its partial into d_w / d_bias with atomicAdd.
+// 1. pool_bwd_mask_kernel: a block owns a panel of CO = min(C, 64) output
+//    channels and a range of queries of one cloud. It stages its panel of w
+//    (transposed, C x CO: 64 kB at C = 256) once, then walks the range QT =
+//    256 / CO queries at a time: it gathers h0 for QT x 32 neighbour slots
+//    into shared memory (slots >= K are zero and masked), recomputes p as a
+//    register-tiled product -- a warp is one query x 32 output channels, a
+//    thread 4 slots x 8 channels, reading h0 and w as float4s, i the outer
+//    loop, so every p keeps the forward's fmaf order -- and forms the max
+//    mask with warp shuffles over the 8 threads that hold a query's 32
+//    slots. Per (query, output
+//    channel) it writes the mask's slot bits, the bits of those whose p < 0
+//    (leaky' = 0.1) and the cotangent's share ct / count, K times smaller
+//    than a dense d_p; the panel-0 blocks also write the sign bits of h0's
+//    pre-activation. Then, still in the block, d_w and d_bias take d_p x
+//    h0 at the masked slots only, into registers (a thread owns CO / 8
+//    output channels x C / 32 input channels of its panel; at C = 32 one
+//    output channel x all 32 inputs, for its warp's query) for the whole
+//    range, and leave it with one atomicAdd an entry. The gather reads a
+//    pass's neighbour indices first, so its float4 loads of u and v are
+//    independent and many are in flight: with one block an SM at C = 256,
+//    a gather that waits on each index in turn takes longer than the
+//    product.
+// 2. pool_bwd_kernel: a thread owns one input channel i of a query (of
+//    two at C = 256) and walks the output channels o in ascending order,
+//    adding for each masked slot s d_p[s, o] w[o, i] into its own column of
+//    d_h0 in shared memory (K floats; w from shared memory up to C = 128,
+//    through L1 at C = 256, where 256 kB does not fit: there each w[o, i]
+//    read serves the thread's two queries, and 8 rows are loaded at once).
+//    Then d_g = d_h0 leaky'(pre-activation
+//    from the sign bits), d_v its sum over the slots in slot order, and
+//    d_u an atomicAdd a (slot, channel): rows of u are shared by many
+//    queries. The mask is split across panel blocks at C = 256, which is
+//    why d_h0 waits for this second launch.
+//
+// Both grids are one wave (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+// the SMs): each block walks many passes, and no block waits for a second
+// round while the rest of the card idles.
 //
 // Cross-block sums (d_u, d_w, d_bias) are float atomicAdd into buffers the
 // wrapper zeroes, so their order of summation changes from run to run: the
 // results agree with the plain version to float32 rounding of sums taken
-// in another order, not bit for bit. d_v is summed in a fixed order.
+// in another order, not bit for bit. d_v is summed in a fixed order (o
+// ascending into d_h0, then s ascending), so it has the same bits with or
+// without d_u.
 //
 // Ties: the mask compares, with ==, values recomputed exactly as the
 // forward computed them: h0 by __fadd_rn then leaky, p by one fmaf chain
@@ -67,343 +85,477 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSlots = 32;          // neighbour slots a query (K <= 32)
-constexpr int kTargetBlocks = 264;  // two waves of blocks on 132 SMs
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kOU = 8;  // rows of w the second kernel loads at once
 
 __device__ __forceinline__ float leaky(float x) {
   return x >= 0.f ? x : 0.1f * x;
 }
 
-__device__ __forceinline__ float leaky_grad(float x) {
-  return x >= 0.f ? 1.f : 0.1f;
-}
-
 template <int C>
-struct Shape {
-  static constexpr int kTQ = kThreads / C;          // queries a pass
-  static constexpr int kRows = kTQ * kSlots;        // (query, slot) rows
-  static constexpr int kCO = C < 128 ? C : 128;     // output channels a panel
+struct MaskShape {
+  static constexpr int kCO = C < 64 ? C : 64;    // output channels a block
   static constexpr int kPanels = C / kCO;
-  static constexpr int kWS = kCO + 1;               // padded: no bank conflicts
-  static constexpr int kGroups = kThreads / kCO;    // row groups in step 2
-  static constexpr int kRowsPT = kRows / kGroups;   // rows a thread in step 2
-  static constexpr int kSmemFloats = C * kWS + kRows * C + kRows * kCO;
+  static constexpr int kTQ = kThreads / kCO;     // queries a pass
+  static constexpr int kHS = C + 4;              // padded h0 row
+  static constexpr int kOW = kCO / 8;            // d_w rows a warp
+  static constexpr int kIL = C / 32;             // d_w columns a lane
+  static constexpr int kSmemFloats =
+      kTQ * kSlots * kHS + C * kCO + 3 * kTQ * kCO + kTQ * kSlots;
 };
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-    pool_bwd_kernel(const float* __restrict__ u, const int* __restrict__ idx,
-                    const float* __restrict__ v, const float* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ ct, int n1, int n2, int k,
-                    int qpb, float* __restrict__ d_u, float* __restrict__ d_v,
-                    uint2* __restrict__ sel, float* __restrict__ share_out) {
-  using S = Shape<C>;
-  constexpr int TQ = S::kTQ, CO = S::kCO, WS = S::kWS;
+__global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
+    pool_bwd_mask_kernel(const float* __restrict__ u,
+                         const int* __restrict__ idx,
+                         const float* __restrict__ v,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ ct, int n1, int n2, int k,
+                         int qpb, uint2* __restrict__ sel,
+                         float* __restrict__ share,
+                         unsigned* __restrict__ hsign, float* __restrict__ d_w,
+                         float* __restrict__ d_bias) {
+  using S = MaskShape<C>;
+  constexpr int CO = S::kCO, TQ = S::kTQ, HS = S::kHS;
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [C][WS]: w[o0 + oo][i]
-  float* hs = ws + C * WS;                       // [kRows][C]: h0
-  float* ps = hs + S::kRows * C;                 // [kRows][CO]: p, then d_p
+  float* hs = reinterpret_cast<float*>(smem4);  // [TQ * 32][HS]: h0
+  float* wt = hs + TQ * kSlots * HS;             // [C][CO]: w[o0 + oo][i]
+  unsigned* mk = reinterpret_cast<unsigned*>(wt + C * CO);  // [TQ][CO]
+  unsigned* ng = mk + TQ * CO;                               // [TQ][CO]
+  float* sh = reinterpret_cast<float*>(ng + TQ * CO);        // [TQ][CO]
+  int* ids = reinterpret_cast<int*>(sh + TQ * CO);           // [TQ * 32]
+  constexpr int C4 = C / 4;
 
   const int b = blockIdx.z;
+  const int o0 = blockIdx.y * CO;
   const float* ub = u + (size_t)b * n2 * C;
   const int* ib = idx + (size_t)b * n1 * k;
   const float* vb = v + (size_t)b * n1 * C;
   const float* cb = ct + (size_t)b * n1 * C;
+  const size_t qb = (size_t)b * n1;  // this cloud's first query overall
 
-  // step 2's thread: one output channel of the panel, a group of rows
-  const int oo2 = threadIdx.x % CO, g2 = threadIdx.x / CO;
-  // step 4's thread: one input channel of one query, all its slots
-  const int i4 = threadIdx.x % C, q4 = threadIdx.x / C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the product's thread: query qw of the pass, slots sg + 8 t (t < 4),
+  // output channels ob + 8 cg .. ob + 8 cg + 7 of the panel; rows 8 apart
+  // and a row stride of C + 4 floats put the 8 sg's float4 reads of h0 in
+  // 8 different 16-byte bank groups
+  const int qw = warp / (CO / 32), ob = (warp % (CO / 32)) * 32;
+  const int sg = lane >> 2, cg = lane & 3;
+
+  for (int e = threadIdx.x; e < C * CO; e += kThreads) {
+    const int i = e % C, oo = e / C;  // coalesced reads of w's rows
+    wt[i * CO + oo] = w[(size_t)(o0 + oo) * C + i];
+  }
+  float bo[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) bo[c] = bias[o0 + ob + cg * 8 + c];
+
+  // d_w's partial: at C = 32 a lane owns output channel `lane` and all 32
+  // inputs for its warp's query (the warps' partials are summed at the
+  // end); wider, a warp owns kOW output channels, a lane inputs lane + 32 c
+  constexpr bool kByRow = C == 32;
+  constexpr int kRows = kByRow ? 1 : S::kOW, kCols = kByRow ? 32 : S::kIL;
+  float dw[kRows][kCols], db[kRows];
+#pragma unroll
+  for (int a = 0; a < kRows; ++a) {
+    db[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dw[a][c] = 0.f;
+  }
 
   const int q_end = min(n1, (blockIdx.x + 1) * qpb);
   for (int q0 = blockIdx.x * qpb; q0 < q_end; q0 += TQ) {
-    // 1. h0 for TQ queries x 32 slots (zero in empty slots)
-    __syncthreads();  // hs and ps of the previous pass are no longer read
-    for (int e = threadIdx.x; e < S::kRows * C; e += kThreads) {
-      const int i = e % C, r = e / C;
+    // 1. h0 for TQ queries x 32 slots (zero in empty slots): the rows'
+    //    indices first, then float4 loads of u and v that do not wait on
+    //    each other; the sign bits of the pre-activation for the second
+    //    kernel (a lane holds 4 channels, 8 lanes a word of 32)
+    __syncthreads();  // hs, ids and the mask of the previous pass are free
+    for (int r = threadIdx.x; r < TQ * kSlots; r += kThreads) {
       const int n = q0 + r / kSlots, kn = r % kSlots;
-      float h = 0.f;
-      if (n < q_end && kn < k) {
-        const int j = ib[(size_t)n * k + kn];
-        h = leaky(__fadd_rn(ub[(size_t)j * C + i], vb[(size_t)n * C + i]));
+      ids[r] = n < q_end && kn < k ? ib[(size_t)n * k + kn] : -1;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int e = threadIdx.x; e < TQ * kSlots * C4; e += kThreads) {
+      const int i4 = e % C4, r = e / C4;
+      const int n = q0 + r / kSlots, j = ids[r];
+      float4 pre = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j >= 0) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(ub + (size_t)j * C + 4 * i4);
+        const float4 c =
+            *reinterpret_cast<const float4*>(vb + (size_t)n * C + 4 * i4);
+        pre = make_float4(__fadd_rn(a.x, c.x), __fadd_rn(a.y, c.y),
+                          __fadd_rn(a.z, c.z), __fadd_rn(a.w, c.w));
       }
-      hs[e] = h;
+      *reinterpret_cast<float4*>(hs + r * HS + 4 * i4) =
+          make_float4(leaky(pre.x), leaky(pre.y), leaky(pre.z),
+                      leaky(pre.w));
+      unsigned word = ((pre.x >= 0.f ? 1u : 0u) | (pre.y >= 0.f ? 2u : 0u) |
+                       (pre.z >= 0.f ? 4u : 0u) | (pre.w >= 0.f ? 8u : 0u))
+                      << (4 * (lane & 7));
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      word |= __shfl_xor_sync(kFull, word, 4);
+      if (blockIdx.y == 0 && (lane & 7) == 0 && n < q_end)
+        hsign[((qb + n) * kSlots + r % kSlots) * (C / 32) + i4 / 8] = word;
+    }
+    __syncthreads();
+
+    // 2. p = leaky(h0 . w[o] + bias[o]) in the forward's operation order,
+    //    then the max mask over the query's slots and the share
+    {
+      float acc[4][8];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[t][c] = 0.f;
+      const float* hrow = hs + (qw * kSlots + sg) * HS;
+      const float* wcol = wt + ob + cg * 8;
+#pragma unroll 2
+      for (int i = 0; i < C; i += 4) {
+        float4 h[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          h[t] = *reinterpret_cast<const float4*>(hrow + 8 * t * HS + i);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float4 wa =
+              *reinterpret_cast<const float4*>(wcol + (i + ii) * CO);
+          const float4 wb =
+              *reinterpret_cast<const float4*>(wcol + (i + ii) * CO + 4);
+          const float wv[8] = {wa.x, wa.y, wa.z, wa.w,
+                               wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float hv = ii == 0 ? h[t].x : ii == 1 ? h[t].y
+                             : ii == 2 ? h[t].z : h[t].w;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[t][c] = fmaf(hv, wv[c], acc[t][c]);
+          }
+        }
+      }
+      const int n = q0 + qw;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float val[4];
+        bool neg[4];
+        float m = -__int_as_float(0x7f800000);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float pre = __fadd_rn(acc[t][c], bo[c]);
+          val[t] = leaky(pre);
+          neg[t] = !(pre >= 0.f);
+          if (sg + 8 * t < k) m = fmaxf(m, val[t]);
+        }
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1)
+          m = fmaxf(m, __shfl_xor_sync(kFull, m, x));
+        unsigned hit = 0u, nb = 0u;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (sg + 8 * t < k && val[t] == m) {
+            hit |= 1u << (sg + 8 * t);
+            if (neg[t]) nb |= 1u << (sg + 8 * t);
+          }
+        }
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1) {
+          hit |= __shfl_xor_sync(kFull, hit, x);
+          nb |= __shfl_xor_sync(kFull, nb, x);
+        }
+        if (sg == c) {  // one thread of the 8 writes channel c
+          const int oo = ob + cg * 8 + c;
+          unsigned h = 0u, g = 0u;
+          float s = 0.f;
+          if (n < q_end) {
+            h = hit;
+            g = nb;
+            s = cb[(size_t)n * C + o0 + oo] / (float)__popc(hit);
+            const size_t at = (qb + n) * C + o0 + oo;
+            sel[at] = make_uint2(h, g);
+            share[at] = s;
+          }
+          mk[qw * CO + oo] = h;
+          ng[qw * CO + oo] = g;
+          sh[qw * CO + oo] = s;
+        }
+      }
     }
 
-    float dh[kSlots];
+    // 3. d_w += d_p^T h0 and d_bias += d_p at the masked slots
+    if constexpr (kByRow) {
+      if (!d_w) continue;
+      __syncthreads();
+      const int q = warp, oo = lane;  // CO = 32, TQ = 8 queries = warps
+      const unsigned m = mk[q * CO + oo], nm = ng[q * CO + oo];
+      const float s = sh[q * CO + oo];
+      for (unsigned bits = m; bits; bits &= bits - 1) {
+        const int slot = __ffs(bits) - 1;
+        const float g = (nm >> slot) & 1u ? s * 0.1f : s;
+        db[0] += g;
+        const float* hr = hs + (q * kSlots + slot) * HS;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) dh[s] = 0.f;
-
-    for (int panel = 0; panel < S::kPanels; ++panel) {
-      const int o0 = panel * CO;
-      if (panel > 0 || S::kPanels > 1) __syncthreads();  // ws, ps free
-      if (S::kPanels > 1 || q0 == blockIdx.x * qpb) {
-        for (int e = threadIdx.x; e < C * CO; e += kThreads) {
-          const int i = e % C, oo = e / C;  // coalesced reads of w's rows
-          ws[i * WS + oo] = w[(size_t)(o0 + oo) * C + i];
+        for (int i4 = 0; i4 < kCols / 4; ++i4) {
+          const float4 h = *reinterpret_cast<const float4*>(hr + 4 * i4);
+          dw[0][4 * i4] = fmaf(g, h.x, dw[0][4 * i4]);
+          dw[0][4 * i4 + 1] = fmaf(g, h.y, dw[0][4 * i4 + 1]);
+          dw[0][4 * i4 + 2] = fmaf(g, h.z, dw[0][4 * i4 + 2]);
+          dw[0][4 * i4 + 3] = fmaf(g, h.w, dw[0][4 * i4 + 3]);
         }
       }
+    } else {
+      if (!d_w) continue;
       __syncthreads();
-
-      // 2. p = leaky(h0 . w[o] + bias[o]), the forward's operation order
-      {
-        const float bo = bias[o0 + oo2];
-        float acc[S::kRowsPT];
+      for (int q = 0; q < TQ; ++q) {
 #pragma unroll
-        for (int j = 0; j < S::kRowsPT; ++j) acc[j] = 0.f;
-#pragma unroll 2
-        for (int i = 0; i < C; i += 4) {
-          const float w0 = ws[i * WS + oo2], w1 = ws[(i + 1) * WS + oo2];
-          const float w2 = ws[(i + 2) * WS + oo2];
-          const float w3 = ws[(i + 3) * WS + oo2];
+        for (int a = 0; a < kRows; ++a) {
+          const int oo = warp * kRows + a;
+          const unsigned m = mk[q * CO + oo], nm = ng[q * CO + oo];
+          const float s = sh[q * CO + oo];
+          for (unsigned bits = m; bits; bits &= bits - 1) {
+            const int slot = __ffs(bits) - 1;
+            const float g = (nm >> slot) & 1u ? s * 0.1f : s;
+            db[a] += g;
+            const float* hr = hs + (q * kSlots + slot) * HS + lane;
 #pragma unroll
-          for (int j = 0; j < S::kRowsPT; ++j) {
-            const int r = g2 + j * S::kGroups;
-            const float4 h = *reinterpret_cast<const float4*>(hs + r * C + i);
-            acc[j] = fmaf(h.x, w0, acc[j]);
-            acc[j] = fmaf(h.y, w1, acc[j]);
-            acc[j] = fmaf(h.z, w2, acc[j]);
-            acc[j] = fmaf(h.w, w3, acc[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < S::kRowsPT; ++j) {
-          const int r = g2 + j * S::kGroups;
-          ps[r * CO + oo2] = __fadd_rn(acc[j], bo);  // pre-activation
-        }
-      }
-      __syncthreads();
-
-      // 3. max mask and d_p, one (query, output channel) a thread
-      for (int e = threadIdx.x; e < TQ * CO; e += kThreads) {
-        const int oo = e % CO, q = e / CO;
-        const int n = q0 + q;
-        float* pq = ps + q * kSlots * CO + oo;
-        if (n < q_end) {
-          float m = -__int_as_float(0x7f800000);
-          for (int s = 0; s < k; ++s) m = fmaxf(m, leaky(pq[s * CO]));
-          float cnt = 0.f;
-          for (int s = 0; s < k; ++s) cnt += leaky(pq[s * CO]) == m ? 1.f : 0.f;
-          const float share = cb[(size_t)n * C + o0 + oo] / cnt;
-          unsigned hit = 0u, neg = 0u;
-          for (int s = 0; s < kSlots; ++s) {
-            float g = 0.f;
-            if (s < k) {
-              const float pre = pq[s * CO];
-              if (leaky(pre) == m) {
-                g = share * leaky_grad(pre);
-                hit |= 1u << s;
-                if (!(pre >= 0.f)) neg |= 1u << s;
-              }
-            }
-            pq[s * CO] = g;
-          }
-          if (sel) {
-            const size_t at = (size_t)(b * n1 + n) * C + o0 + oo;
-            sel[at] = make_uint2(hit, neg);
-            share_out[at] = share;
-          }
-        } else {
-          for (int s = 0; s < kSlots; ++s) pq[s * CO] = 0.f;
-        }
-      }
-      __syncthreads();
-
-      // 4a. d_h0 += d_p @ w_panel, one (query, input channel) a thread
-      {
-        const float* pq = ps + q4 * kSlots * CO;
-        const float* wi = ws + i4 * WS;
-#pragma unroll 2
-        for (int oo = 0; oo < CO; oo += 4) {
-          const float w0 = wi[oo], w1 = wi[oo + 1];
-          const float w2 = wi[oo + 2], w3 = wi[oo + 3];
-#pragma unroll
-          for (int s = 0; s < kSlots; ++s) {
-            const float4 g =
-                *reinterpret_cast<const float4*>(pq + s * CO + oo);
-            dh[s] = fmaf(g.x, w0, dh[s]);
-            dh[s] = fmaf(g.y, w1, dh[s]);
-            dh[s] = fmaf(g.z, w2, dh[s]);
-            dh[s] = fmaf(g.w, w3, dh[s]);
+            for (int c = 0; c < kCols; ++c)
+              dw[a][c] = fmaf(g, hr[32 * c], dw[a][c]);
           }
         }
       }
     }
-
-    // 4b. d_g = d_h0 * leaky'(pre-activation of h0); d_v; scatter into d_u
-    const int n = q0 + q4;
-    if (n < q_end) {
-      float dv = 0.f;
+  }
+  if (!d_w) return;
+  if constexpr (kByRow) {
+    // the 8 warps' partials summed through shared memory (hs is free),
+    // then one atomicAdd an entry of the block's panel
+    __syncthreads();
+    float* red = hs;                    // [warp][i][33]: padded rows
+    float* red_b = hs + 8 * 32 * 33;    // [warp][o]
 #pragma unroll
-      for (int s = 0; s < kSlots; ++s) {  // static indices keep dh in registers
-        if (s >= k) break;
-        // __fmul_rn: a product the compiler may not fuse into dv's sum, so
-        // d_v has the same bits whether or not d_u is wanted
-        const float g =
-            __fmul_rn(dh[s], leaky_grad(hs[(q4 * kSlots + s) * C + i4]));
-        dv += g;
-        if (d_u) {
-          const int j = ib[(size_t)n * k + s];
-          atomicAdd(d_u + ((size_t)b * n2 + j) * C + i4, g);
-        }
-      }
-      if (d_v) d_v[((size_t)b * n1 + n) * C + i4] = dv;
+    for (int i = 0; i < kCols; ++i)
+      red[(warp * 32 + i) * 33 + lane] = dw[0][i];
+    red_b[warp * 32 + lane] = db[0];
+    __syncthreads();
+    for (int e = threadIdx.x; e < 32 * 32; e += kThreads) {
+      const int i = e % 32, oo = e / 32;
+      float sum = 0.f;
+      for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * 32 + i) * 33 + oo];
+      atomicAdd(d_w + (size_t)(o0 + oo) * C + i, sum);
+    }
+    if (threadIdx.x < 32 && d_bias) {
+      float sum = 0.f;
+      for (int w8 = 0; w8 < 8; ++w8) sum += red_b[w8 * 32 + threadIdx.x];
+      atomicAdd(d_bias + o0 + threadIdx.x, sum);
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) {
+      const int o = o0 + warp * kRows + a;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        atomicAdd(d_w + (size_t)o * C + lane + 32 * c, dw[a][c]);
+      if (lane == 0 && d_bias) atomicAdd(d_bias + o, db[a]);
     }
   }
 }
 
-// d_w[o, i] += sum_q sum_(s masked for (q, o)) d_p[q, s, o] h0[q, s, i] and
-// d_bias[o] += the same d_p, over the queries q of one range, with d_p =
-// share * leaky' rebuilt from the mask. A block owns a T x T tile of d_w;
-// a thread owns PT x PT entries of it, o = o0 + ty + 16 a and i = i0 + tx +
-// 16 c, so a warp reads a row of h0 without bank conflicts.
+template <int C>
+struct GradShape {
+  static constexpr int kQR = C == 256 ? 2 : 1;       // queries a thread
+  static constexpr int kTQ = kThreads / C * kQR;     // queries a pass
+  static constexpr bool kWShared = C <= 128;
+  static constexpr int kSmemFloats =
+      (kWShared ? C * C : 0) + kTQ * kSlots * C + 4 * kTQ * C;
+};
+
+// d_h0 from the mask, then d_g, d_v and d_u: a thread owns one input
+// channel of kQR queries, their columns of d_h0 in shared memory; each
+// w[o, i] it reads serves all kQR.
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-    pool_bwd_dw_kernel(const float* __restrict__ u, const int* __restrict__ idx,
-                       const float* __restrict__ v,
-                       const uint2* __restrict__ sel,
-                       const float* __restrict__ share, int n1, int n2, int k,
-                       int queries, int qpb, float* __restrict__ d_w,
-                       float* __restrict__ d_bias) {
-  constexpr int T = C < 64 ? C : 64;
-  constexpr int PT = T / 16;
-  constexpr int RQ = kThreads / T;  // queries staged a step: 32 kB of h0
-  __shared__ __align__(16) float hs[RQ][kSlots][T];  // h0, tile's columns i
-  __shared__ uint2 ms[RQ][T];                        // masks, tile's o
-  __shared__ float ss[RQ][T];                        // shares, tile's o
+    pool_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ w,
+                    const uint2* __restrict__ sel,
+                    const float* __restrict__ share,
+                    const unsigned* __restrict__ hsign, int n1, int n2, int k,
+                    int qpb, float* __restrict__ d_u,
+                    float* __restrict__ d_v) {
+  using S = GradShape<C>;
+  constexpr int TQ = S::kTQ, QR = S::kQR;
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);          // [C][C]: w[o][i]
+  float* dh = ws + (S::kWShared ? C * C : 0);           // [TQ][32][C]
+  unsigned* mk = reinterpret_cast<unsigned*>(dh + TQ * kSlots * C);
+  unsigned* ng = mk + TQ * C;                           // [TQ][C]
+  float* sh = reinterpret_cast<float*>(ng + TQ * C);    // [TQ][C]
+  unsigned* sg = reinterpret_cast<unsigned*>(sh + TQ * C);  // [TQ][32][C/32]
 
-  const int tiles = C / T;
-  const int o0 = (blockIdx.y / tiles) * T, i0 = (blockIdx.y % tiles) * T;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[PT][PT], db[PT];
-#pragma unroll
-  for (int a = 0; a < PT; ++a) {
-    db[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < PT; ++c) acc[a][c] = 0.f;
+  const int b = blockIdx.z;
+  const size_t qb = (size_t)b * n1;
+  const int* ib = idx + qb * k;
+  // this thread's queries of a pass: qg * QR .. qg * QR + QR - 1
+  const int i = threadIdx.x % C, qg = threadIdx.x / C;
+  if (S::kWShared) {
+    for (int e = threadIdx.x; e < C * C; e += kThreads) ws[e] = w[e];
   }
-  const bool bias_tile = i0 == 0 && tx == 0;
+  const float* wsrc = S::kWShared ? ws : w;
 
-  const int q_begin = blockIdx.x * qpb;
-  const int q_end = min(queries, q_begin + qpb);
-  for (int q0 = q_begin; q0 < q_end; q0 += RQ) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < RQ * kSlots * T; e += kThreads) {
-      const int c = e % T, s = (e / T) % kSlots, rq = e / (T * kSlots);
-      const int q = q0 + rq;  // b * n1 + n
-      float h = 0.f;
-      if (q < q_end && s < k) {
-        const int j = idx[(size_t)q * k + s];
-        h = leaky(__fadd_rn(u[((size_t)(q / n1) * n2 + j) * C + i0 + c],
-                            v[(size_t)q * C + i0 + c]));
-      }
-      hs[rq][s][c] = h;
-    }
-    for (int e = threadIdx.x; e < RQ * T; e += kThreads) {
-      const int c = e % T, rq = e / T;
-      const int q = q0 + rq;
+  const int q_end = min(n1, (blockIdx.x + 1) * qpb);
+  for (int q0 = blockIdx.x * qpb; q0 < q_end; q0 += TQ) {
+    __syncthreads();  // the mask of the previous pass is no longer read
+    // TQ * C entries of the mask and as many words of sign bits (32 * C /
+    // 32 a query)
+    for (int e = threadIdx.x; e < TQ * C; e += kThreads) {
+      const int n = q0 + e / C;
       uint2 m = make_uint2(0u, 0u);
-      float sh = 0.f;
-      if (q < q_end) {
-        m = sel[(size_t)q * C + o0 + c];
-        sh = share[(size_t)q * C + o0 + c];
+      float s = 0.f;
+      unsigned bits = 0u;
+      if (n < q_end) {
+        m = sel[(qb + n) * C + e % C];
+        s = share[(qb + n) * C + e % C];
+        bits = hsign[(qb + n) * C + e % C];
       }
-      ms[rq][c] = m;
-      ss[rq][c] = sh;
+      mk[e] = m.x;
+      ng[e] = m.y;
+      sh[e] = s;
+      sg[e] = bits;
     }
+#pragma unroll
+    for (int r = 0; r < QR; ++r)
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        dh[((qg * QR + r) * kSlots + s) * C + i] = 0.f;
     __syncthreads();
-    for (int rq = 0; rq < RQ; ++rq) {
+
+    for (int o0 = 0; o0 < C; o0 += kOU) {
+      float wv[kOU];  // loads issued together, not one per o in turn
 #pragma unroll
-      for (int a = 0; a < PT; ++a) {
-        const uint2 m = ms[rq][ty + 16 * a];
-        const float sh = ss[rq][ty + 16 * a];
-        for (unsigned bits = m.x; bits; bits &= bits - 1) {
-          const int s = __ffs(bits) - 1;
-          const float g = (m.y >> s) & 1u ? sh * 0.1f : sh;  // kernel 1's d_p
-          if (bias_tile) db[a] += g;
+      for (int u = 0; u < kOU; ++u) wv[u] = wsrc[(o0 + u) * C + i];
 #pragma unroll
-          for (int c = 0; c < PT; ++c)
-            acc[a][c] = fmaf(g, hs[rq][s][tx + 16 * c], acc[a][c]);
+      for (int u = 0; u < kOU; ++u) {
+        const int o = o0 + u;
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const int q = qg * QR + r;
+          const unsigned m = mk[q * C + o];
+          const unsigned nm = ng[q * C + o];
+          const float s = sh[q * C + o];
+          float* col = dh + q * kSlots * C + i;
+          for (unsigned bits = m; bits; bits &= bits - 1) {
+            const int slot = __ffs(bits) - 1;
+            const float g = (nm >> slot) & 1u ? s * 0.1f : s;
+            col[slot * C] = fmaf(g, wv[u], col[slot * C]);
+          }
         }
       }
     }
-  }
 #pragma unroll
-  for (int a = 0; a < PT; ++a) {
-    const int o = o0 + ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < PT; ++c)
-      atomicAdd(d_w + (size_t)o * C + i0 + tx + 16 * c, acc[a][c]);
-    if (bias_tile && d_bias) atomicAdd(d_bias + o, db[a]);
+    for (int r = 0; r < QR; ++r) {
+      const int q = qg * QR + r, n = q0 + q;
+      if (n >= q_end) continue;
+      const float* col = dh + q * kSlots * C + i;
+      const unsigned* bits = sg + q * C;
+      float dv = 0.f;
+      for (int s = 0; s < k; ++s) {
+        const bool pos = (bits[s * (C / 32) + i / 32] >> (i % 32)) & 1u;
+        // __fmul_rn: a product the compiler may not fuse into dv's sum, so
+        // d_v has the same bits whether or not d_u is wanted
+        const float g = __fmul_rn(col[s * C], pos ? 1.f : 0.1f);
+        dv += g;
+        if (d_u) {
+          const int j = ib[(size_t)n * k + s];
+          atomicAdd(d_u + ((size_t)b * n2 + j) * C + i, g);
+        }
+      }
+      if (d_v) d_v[(qb + n) * C + i] = dv;
+    }
   }
+}
+
+// Queries a block so that the grid is one wave: every block resident at
+// once, none waiting for a second round (blocks run many passes each).
+template <typename Kernel>
+int passes_a_block(Kernel kernel, size_t smem, int passes, int blocks_per) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int slots = (per_sm < 1 ? 1 : per_sm) * (sms < 1 ? 1 : sms);
+  const int per = (passes * blocks_per + slots - 1) / slots;
+  return per < 1 ? 1 : per;
 }
 
 template <int C>
 cudaError_t launch(const float* u, const int* idx, const float* v,
                    const float* w, const float* bias, const float* ct, int b,
                    int n1, int n2, int k, float* d_u, float* d_v, float* d_w,
-                   float* d_bias, uint2* sel, float* share,
+                   float* d_bias, uint2* sel, float* share, unsigned* hsign,
                    cudaStream_t stream) {
-  using S = Shape<C>;
-  const size_t smem = sizeof(float) * S::kSmemFloats;
+  using M = MaskShape<C>;
+  const size_t smem = sizeof(float) * M::kSmemFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      pool_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pool_bwd_mask_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const int passes = (n1 + S::kTQ - 1) / S::kTQ;
-  int per = (passes * b + kTargetBlocks - 1) / kTargetBlocks;
-  per = per < 1 ? 1 : per;
-  const int qpb = per * S::kTQ;
-  const dim3 grid((n1 + qpb - 1) / qpb, 1, b);
-  pool_bwd_kernel<C><<<grid, kThreads, smem, stream>>>(
-      u, idx, v, w, bias, ct, n1, n2, k, qpb, d_u, d_v, sel, share);
+  const int passes = (n1 + M::kTQ - 1) / M::kTQ;
+  const int qpb = M::kTQ * passes_a_block(pool_bwd_mask_kernel<C>, smem,
+                                          passes, M::kPanels * b);
+  const dim3 grid((n1 + qpb - 1) / qpb, M::kPanels, b);
+  pool_bwd_mask_kernel<C><<<grid, kThreads, smem, stream>>>(
+      u, idx, v, w, bias, ct, n1, n2, k, qpb, sel, share, hsign, d_w,
+      d_bias);
   err = cudaGetLastError();
-  if (err != cudaSuccess || (!d_w && !d_bias)) return err;
+  if (err != cudaSuccess || (!d_u && !d_v)) return err;
 
-  constexpr int T = C < 64 ? C : 64;
-  constexpr int RQ = kThreads / T;
-  const int tiles = (C / T) * (C / T);
-  const int queries = b * n1;
-  int blocks = 2 * kTargetBlocks / tiles;
-  blocks = blocks < 1 ? 1 : blocks;
-  int qpb_w = (queries + blocks - 1) / blocks;
-  qpb_w = (qpb_w + RQ - 1) / RQ * RQ;
-  const dim3 grid_w((queries + qpb_w - 1) / qpb_w, tiles);
-  pool_bwd_dw_kernel<C><<<grid_w, kThreads, 0, stream>>>(
-      u, idx, v, sel, share, n1, n2, k, queries, qpb_w, d_w, d_bias);
+  using G = GradShape<C>;
+  const size_t smem_g = sizeof(float) * G::kSmemFloats;
+  err = cudaFuncSetAttribute(pool_bwd_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_g);
+  if (err != cudaSuccess) return err;
+  const int passes_g = (n1 + G::kTQ - 1) / G::kTQ;
+  const int qpb_g = G::kTQ * passes_a_block(pool_bwd_kernel<C>, smem_g,
+                                            passes_g, b);
+  const dim3 grid_g((n1 + qpb_g - 1) / qpb_g, 1, b);
+  pool_bwd_kernel<C><<<grid_g, kThreads, smem_g, stream>>>(
+      idx, w, sel, share, hsign, n1, n2, k, qpb_g, d_u, d_v);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// d_u, d_w and d_bias must hold zeros; sel (2 * B * N1 * C ints) and share
-// (B * N1 * C floats) are scratch. d_u or d_v may be null (not wanted); with
-// d_w and d_bias both null, sel and share may be null too and the second
-// kernel does not run.
+// d_u, d_w and d_bias must hold zeros; sel (2 * B * N1 * C ints), share
+// (B * N1 * C floats) and hsign (B * N1 * C ints) are scratch. d_u, d_v, or
+// d_w with d_bias may be null (not wanted); d_bias needs d_w. With d_u and
+// d_v both null the second kernel does not run.
 extern "C" int kdpc_pool_bwd(const float* u, const int* idx, const float* v,
                              const float* w, const float* bias,
                              const float* ct, int b, int n1, int n2, int k,
                              int c, float* d_u, float* d_v, float* d_w,
                              float* d_bias, unsigned* sel, float* share,
-                             cudaStream_t stream) {
+                             unsigned* hsign, cudaStream_t stream) {
   if (b <= 0 || n1 <= 0 || n2 <= 0 || k <= 0 || k > kSlots)
     return (int)cudaErrorInvalidValue;
-  if ((d_w || d_bias) && (!d_w || !sel || !share))
+  if ((d_bias && !d_w) || !sel || !share || !hsign)
     return (int)cudaErrorInvalidValue;
   uint2* sel2 = reinterpret_cast<uint2*>(sel);
   switch (c) {
     case 32:
       return (int)launch<32>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
-                             d_w, d_bias, sel2, share, stream);
+                             d_w, d_bias, sel2, share, hsign, stream);
     case 64:
       return (int)launch<64>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
-                             d_w, d_bias, sel2, share, stream);
+                             d_w, d_bias, sel2, share, hsign, stream);
     case 128:
       return (int)launch<128>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
-                              d_w, d_bias, sel2, share, stream);
+                              d_w, d_bias, sel2, share, hsign, stream);
     case 256:
       return (int)launch<256>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
-                              d_w, d_bias, sel2, share, stream);
+                              d_w, d_bias, sel2, share, hsign, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -44,14 +44,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # xyz, B, N, M, out_idx, stream
     "kdpc_fps": (_P, _I, _I, _I, _P, _P),
-    # query, keys, B, S, N, K, out_idx, out_d2, stream
-    "kdpc_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # query, keys, B, S, N, K, lanes, queries a block, out_idx, out_d2,
+    # stream
+    "kdpc_knn": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # u, idx, v, w, bias, B, N1, N2, K, C, out, stream
     "kdpc_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     # u, idx, v, w, bias, ct, B, N1, N2, K, C, d_u, d_v, d_w, d_bias,
-    # sel and share scratch, stream
+    # sel, share and hsign scratch, stream
     "kdpc_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _P, _P, _P),
+                      _P, _P, _P, _P, _P),
     # planes, pidx, centers, radii, xyz, B, N, M, out_idx, dirty, stream
     "kdpc_fps_pruned": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
@@ -138,6 +139,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -176,10 +179,13 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 def check_on_card(name: str, *tensors: torch.Tensor) -> None:
     """The kernels take tensors on the current CUDA device only."""
+    current = None
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got "
                              f"{t.device}")
-        if t.device.index not in (None, torch.cuda.current_device()):
+        if current is None:
+            current = torch.cuda.current_device()
+        if t.device.index not in (None, current):
             raise ValueError(f"{name}: tensor is on {t.device}, current "
-                             f"device is cuda:{torch.cuda.current_device()}")
+                             f"device is cuda:{current}")

@@ -3,9 +3,12 @@
 Port of the exact path of kd_pointcloud_tpu/ops/knn.py (knn_point /
 knn_point_dist with method="exact"). ``knn_plain`` is the plain version: a
 stable sort of the square_distance expansion, in query chunks of 2048 as
-the JAX package chunks it. The CUDA kernel is csrc/knn.cu: one thread per
-query and a sorted register list, ranking keys by the same expansion. Both
-break ties toward the lower key index, as lax.top_k does; torch.topk
+the JAX package chunks it. The CUDA kernel is csrc/knn.cu: L lanes a query
+scan stripes of each key tile and keep one sorted list a group, one entry a
+lane, merging each step's candidates lowest index first (``knn_striped`` is
+that rule in torch, for the tests; ``knn_plan`` picks L and the queries a
+block). Both break ties toward the lower key index, as lax.top_k does;
+torch.topk
 promises no tie order, and at metric scale (|x|^2 ~ 1e3, so the expansion
 moves in steps of ~6e-5) equal distances among near neighbours are common.
 
@@ -15,6 +18,8 @@ float-float mode) is not reproduced: the port's search is exact.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import kernels
@@ -22,6 +27,14 @@ from .distance import square_distance
 
 KERNEL_K = (3, 9, 16, 32)
 _CHUNK = 2048
+KERNEL_LANES = (1, 4, 8, 16, 32)   # lanes a query the kernel is built for
+ONE_LANE_K = 3                  # the k, and list entries, of L = 1
+TILE = 2048                     # keys a shared-memory tile (csrc/knn.cu)
+MAX_THREADS = 1024              # threads a block
+SMS = 132                       # streaming multiprocessors of an H100
+FILL_THREADS = SMS * 1024       # lanes that keep every SM half occupied
+ONE_LANE_QUERIES = SMS * 256    # queries that give 8 warps an SM at L = 1
+MIN_BLOCKS = 2 * SMS
 
 
 def knn_plain(k: int, xyz: torch.Tensor, query: torch.Tensor):
@@ -33,6 +46,69 @@ def knn_plain(k: int, xyz: torch.Tensor, query: torch.Tensor):
         ds.append(d[..., :k])
         idxs.append(i[..., :k].int())
     return torch.cat(ds, dim=1), torch.cat(idxs, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def knn_plan(B: int, S: int, N: int, k: int):
+    """(lanes, queries a block) of the kNN kernel for B clouds of S queries
+    over N keys. One lane a query (its 3 entries in registers) where
+    k == ONE_LANE_K and B * S >= ONE_LANE_QUERIES; else lanes the smallest
+    power of two >= max(k, 4) (one list entry a lane), doubled up to 32
+    while B * S * lanes is short of FILL_THREADS. Queries a block: as many
+    as 1024 threads hold, halved while the grid has fewer than MIN_BLOCKS
+    blocks, never below one warp. N does not change the plan: a group's
+    time grows with N, its parallelism does not."""
+    if k > KERNEL_LANES[-1]:
+        raise ValueError(f"knn kernel takes k <= {KERNEL_LANES[-1]}, got {k}")
+    if k == ONE_LANE_K and B * S >= ONE_LANE_QUERIES:
+        lanes = 1
+    else:
+        lanes = 4
+        while lanes < k:
+            lanes *= 2
+        while lanes < KERNEL_LANES[-1] and B * S * lanes < FILL_THREADS:
+            lanes *= 2
+    qpb = MAX_THREADS // lanes
+    while qpb * lanes > 32 and B * -(-S // qpb) < MIN_BLOCKS:
+        qpb //= 2
+    return lanes, qpb
+
+
+def list_entries(lanes: int) -> int:
+    """Entries of a group's sorted list: one a lane, ONE_LANE_K at L = 1."""
+    return ONE_LANE_K if lanes == 1 else lanes
+
+
+def knn_striped(k: int, xyz: torch.Tensor, query: torch.Tensor, lanes: int):
+    """The kernel's selection rule in torch, for the tests: the keys in
+    steps of ``lanes`` consecutive indices, one per lane; the step's
+    candidates (distance strictly below the list's k-th) inserted lowest
+    lane first into one sorted list of list_entries(lanes) entries, after
+    every entry whose distance is not greater, each checked again against
+    the k-th entry that the earlier insertions left. Returns (d2, idx) like
+    knn_plain, which it equals bit for bit."""
+    B, S, N = query.shape[0], query.shape[1], xyz.shape[1]
+    d_all = square_distance(query, xyz)                     # (B, S, N)
+    entries = list_entries(lanes)
+    ld = torch.full((B, S, entries), float("inf"), dtype=d_all.dtype)
+    li = torch.zeros(B, S, entries, dtype=torch.int32)
+    pos = torch.arange(entries)
+    for j0 in range(0, N, lanes):
+        step = d_all[..., j0:j0 + lanes]
+        cand = step < ld[..., k - 1:k]
+        for src in range(step.shape[-1]):
+            cd = step[..., src:src + 1]
+            ins = cand[..., src:src + 1] & (cd < ld[..., k - 1:k])
+            up_d = torch.cat([ld[..., :1], ld[..., :-1]], dim=-1)
+            up_i = torch.cat([li[..., :1], li[..., :-1]], dim=-1)
+            take_up = (pos > 0) & (up_d > cd)
+            move = ins & (ld > cd)
+            ld = torch.where(move, torch.where(take_up, up_d, cd), ld)
+            li = torch.where(move, torch.where(take_up, up_i,
+                                               torch.tensor(j0 + src,
+                                                            dtype=li.dtype)),
+                             li)
+    return ld[..., :k].contiguous(), li[..., :k].contiguous()
 
 
 def _check(k: int, xyz: torch.Tensor, query: torch.Tensor) -> None:
@@ -52,10 +128,11 @@ def _knn_cuda(k: int, xyz: torch.Tensor, query: torch.Tensor):
         raise ValueError(f"knn kernel takes k in {KERNEL_K}, got {k}")
     B, N, _ = xyz.shape
     S = query.shape[1]
+    lanes, qpb = knn_plan(B, S, N, k)
     idx = torch.empty(B, S, k, dtype=torch.int32, device=xyz.device)
     d2 = torch.empty(B, S, k, dtype=torch.float32, device=xyz.device)
     kernels.launch("knn", query.data_ptr(), xyz.data_ptr(), B, S, N, k,
-                   idx.data_ptr(), d2.data_ptr())
+                   lanes, qpb, idx.data_ptr(), d2.data_ptr())
     return d2, idx
 
 

@@ -4,8 +4,10 @@ v[b, n]) @ W^T + bias), forward and backward.
 Port of kd_pointcloud_tpu/ops/pallas/pool_fused.py pool_mlp_max for the
 single-layer MLP every cross layer builds. ``pool_plain`` is the plain
 version (the math of ``_pool_ref``), and its autograd is the plain version
-of the backward. The CUDA kernels are csrc/pool_fused.cu (forward) and
-csrc/pool_fused_bwd.cu (backward, as the JAX package's custom VJP): both
+of the backward; ``pool_bwd_masked`` forms that backward from the max mask
+as the backward kernels do. The CUDA kernels are csrc/pool_fused.cu
+(forward) and csrc/pool_fused_bwd.cu (backward, as the JAX package's custom
+VJP): both
 gather the rows of the key table u themselves, so the grouped (B, N, K, C)
 tensor never reaches device memory, and the backward recomputes the
 activations instead of saving them. The TPU's k-major layout and lane
@@ -59,6 +61,45 @@ def pool_plain(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
     return leaky(F.linear(h, weight, bias)).amax(dim=2)
 
 
+def pool_bwd_masked(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
+                    weight: torch.Tensor, bias: torch.Tensor,
+                    ct: torch.Tensor):
+    """(d_u, d_v, d_weight, d_bias) of pool_plain for the cotangent ct,
+    formed as the backward kernels form them, for the tests: the max mask
+    by == on the recomputed leaky(p), the cotangent split evenly among its
+    tied slots, and d_p used only at the mask's (query, slot, output
+    channel) entries -- d_h0 adds, for each entry in ascending output
+    channel, d_p times that channel's row of w into the slot's row (C^2 a
+    query, not the dense 2 K C^2), d_w adds d_p times the slot's h0 into
+    the channel's row, d_bias adds d_p."""
+    B, N2, C = u.shape
+    _, N1, K = idx.shape
+    with torch.no_grad():
+        pre_h = group_points(u, idx) + v[:, :, None, :]      # (B, N1, K, C)
+        h0 = F.leaky_relu(pre_h, LEAKY_RATE)
+        pre_p = F.linear(h0, weight, bias)
+        val = F.leaky_relu(pre_p, LEAKY_RATE)
+        hit = val == val.amax(dim=2, keepdim=True)
+        share = ct / hit.sum(dim=2)                          # (B, N1, C)
+        d_p = torch.where(pre_p >= 0, share[:, :, None, :],
+                          LEAKY_RATE * share[:, :, None, :])
+        b, n, s, o = hit.nonzero(as_tuple=True)   # (b, n, s) rows, o last
+        g = d_p[b, n, s, o]
+        rows = (b * N1 + n) * K + s
+        d_h0 = torch.zeros(B * N1 * K, C, dtype=u.dtype).index_add_(
+            0, rows, g[:, None] * weight[o])
+        d_g = d_h0.view(B, N1, K, C) * torch.where(pre_h >= 0, 1.0,
+                                                   LEAKY_RATE)
+        d_v = d_g.sum(dim=2)
+        d_u = torch.zeros(B * N2, C, dtype=u.dtype).index_add_(
+            0, (idx.long() + N2 * torch.arange(B)[:, None, None]).view(-1),
+            d_g.reshape(-1, C)).view(B, N2, C)
+        d_w = torch.zeros(C, C, dtype=u.dtype).index_add_(
+            0, o, g[:, None] * h0[b, n, s])
+        d_b = torch.zeros(C, dtype=u.dtype).index_add_(0, o, g)
+    return d_u, d_v, d_w, d_b
+
+
 def _check(u, idx, v, weight, bias) -> None:
     for name, t, dtype, ndim in (("u", u, torch.float32, 3),
                                  ("idx", idx, torch.int32, 3),
@@ -105,25 +146,31 @@ def _pool_bwd_cuda(u, idx, v, weight, bias, ct, need=(True,) * 4):
         raise ValueError(f"pool backward kernel takes C in {KERNEL_C}, "
                          f"K <= {KERNEL_BWD_K} and ct shaped like v; got "
                          f"C={C}, K={K}, ct {tuple(ct.shape)}")
+    if u.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("pool backward kernel reads u and v as float4: "
+                         "their data must be 16-byte aligned")
     need_u, need_v, need_w, need_b = need
     f32 = dict(dtype=torch.float32, device=u.device)
+    i32 = dict(dtype=torch.int32, device=u.device)
     d_u = torch.zeros(B, N2, C, **f32) if need_u else None
     d_v = torch.empty(B, N1, C, **f32) if need_v else None
     want_wb = need_w or need_b
     d_w = torch.zeros(C, C, **f32) if want_wb else None
     d_b = torch.zeros(C, **f32) if want_wb else None
-    # the max mask's slots and share per (query, output channel), for d_w
-    sel = (torch.empty(B, N1, C, 2, dtype=torch.int32, device=u.device)
-           if want_wb else None)
-    share = torch.empty(B, N1, C, **f32) if want_wb else None
+    # per (query, output channel) the max mask's slot bits, their p < 0
+    # bits and the cotangent's share; per (query, slot) the sign bits of
+    # h0's pre-activation, 32 channels a word
+    sel = torch.empty(B, N1, C, 2, **i32)
+    share = torch.empty(B, N1, C, **f32)
+    hsign = torch.empty(B, N1, C, **i32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     kernels.launch("pool_bwd", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), ct.data_ptr(), B, N1,
-                   N2, K, C, ptr(d_u), ptr(d_v), ptr(d_w), ptr(d_b), ptr(sel),
-                   ptr(share))
+                   N2, K, C, ptr(d_u), ptr(d_v), ptr(d_w), ptr(d_b),
+                   sel.data_ptr(), share.data_ptr(), hsign.data_ptr())
     return (d_u, d_v, d_w if need_w else None, d_b if need_b else None)
 
 

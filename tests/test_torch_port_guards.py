@@ -200,7 +200,7 @@ def test_chip_smoke_ptxas_summary():
 
 @pytest.mark.parametrize("kernel", ["fps_kernel", "fps_pruned_kernel",
                                     "knn_kernel", "pool_kernel",
-                                    "pool_bwd_kernel", "pool_bwd_dw_kernel",
+                                    "pool_bwd_kernel", "pool_bwd_mask_kernel",
                                     "cross_pool_kernel"])
 def test_chip_smoke_names_each_kernel_apart(kernel):
     """No kernel's name is read as the tail of another's, in ptxas's
