@@ -18,9 +18,12 @@ printing flushed lines as it goes:
      reports per kernel;
   3. kernels against plain versions, on the inputs that one eval forward
      hands each kernel (1 FPS, 19 kNN, 12 pool call sites): FPS
-     bit-identical, kNN bit-identical (indices in order and d2) at every
-     site, with its launch plan (lanes a query, queries a block), pool
-     within 1e-4 x max|plain|;
+     bit-identical, with its launch plan (blocks a cloud, from the card's
+     cluster occupancy), also on duplicated points (ties across lanes,
+     warps and blocks) and at N = 8000 (padding), at every cluster size;
+     kNN bit-identical (indices in order and d2) at every site, with its
+     launch plan (lanes a query, queries a block); pool within 1e-4 x
+     max|plain|, also at K = 9 with N1 off every query tile;
   4. the eval path: evaluate_model over 3 seeded synthetic pairs with
      seeded random weights, launch counts per forward (FPS 1, kNN 19,
      pool 12), flows[0..3] against the same model with every kernel swapped
@@ -52,7 +55,9 @@ printing flushed lines as it goes:
      (it must fall: a sanity check, not a convergence claim), 2 more steps
      under torch.profiler as in phase 5, and each kernel at the step's
      call sites with CUDA events beside its plain version and its bound
-     (kNN first held bit for bit against knn_plain at each site);
+     (FPS and kNN first held bit for bit against fps_plain and knn_plain
+     at each site; FPS's chain, the rounds without their distance pass,
+     timed beside it);
   9. the attic kernels, on no path, against their plain versions: pruned
      FPS at 8192 -> 2048 on the stacked clouds of the eval, train and KD
      forwards (batches 2, 6, 16) and a clustered cloud, bit-identical to
@@ -71,8 +76,8 @@ printing flushed lines as it goes:
      and statistics bit-unchanged, and the launches of the step (FPS 2,
      kNN 38, pool 24, pool_bwd 12: the frozen teacher adds no backward);
  11. KD timing: 10 steps after a warm-up as in phase 8, 2 more under
-     torch.profiler, and each kernel at the KD step's call sites (kNN
-     bit-identical at each, as in phase 8);
+     torch.profiler, and each kernel at the KD step's call sites (FPS and
+     kNN bit-identical at each, as in phase 8);
  12. one bridge KD step (a 512-channel Bridge on the teacher's layer-3
      features, its own Adam) through the kernels and through the plain
      versions: loss within 1e-5 relative, student and bridge gradients
@@ -150,7 +155,9 @@ KERNEL_RE = (r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_mask|pool_bwd"
 KERNEL_META = {
     "fps": dict(source="kd_pointcloud_tpu_torch/csrc/fps.cu",
                 replaces="kd_pointcloud_tpu/ops/pallas/fps_pallas.py:212",
-                design="first: one block a cloud, a serial chain of rounds"),
+                design="second: a cluster of G blocks a cloud (fps_plan), "
+                       "st.async exchange counted on an mbarrier, redux.sync "
+                       "argmax of packed keys"),
     "knn": dict(source="kd_pointcloud_tpu_torch/csrc/knn.cu",
                 replaces="kd_pointcloud_tpu/ops/pallas/knn_fused.py:319",
                 design="second: L lanes a query (knn_plan), one sorted list "
@@ -158,8 +165,9 @@ KERNEL_META = {
                        "merge"),
     "pool": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused.cu",
                  replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:173",
-                 design="first: a panel of w a block, one (query, channel) "
-                        "a thread"),
+                 design="second: all C channels a block, 8 x 8 register "
+                        "tiles, w streamed in i-tiles at C >= 128, one "
+                        "wave"),
     "pool_bwd": dict(source="kd_pointcloud_tpu_torch/csrc/pool_fused_bwd.cu",
                      replaces="kd_pointcloud_tpu/ops/pallas/pool_fused.py:269",
                      design="second: register-tiled recompute of p, mask "
@@ -189,8 +197,11 @@ def ptxas_summary(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(KERNEL_RE + r"(?:ILi(\d+)E)?", m.group(1))
-            name = f"{k.group(1)}_kernel<{k.group(2)}>" if k else m.group(1)
+            k = re.search(KERNEL_RE + r"(?:I((?:L[ib]\d+E)+)E)?",
+                          m.group(1))
+            targs = ", ".join(re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                              ) if k else ""
+            name = f"{k.group(1)}_kernel<{targs}>" if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -425,6 +436,7 @@ def main() -> int:
                                                 Bridge)
     from kd_pointcloud_tpu_torch.ops import fps as fps_mod
     from kd_pointcloud_tpu_torch.ops import kernels
+    from kd_pointcloud_tpu_torch.ops.kernel_ab import fps_skeleton
     from kd_pointcloud_tpu_torch.ops import knn as knn_mod
     from kd_pointcloud_tpu_torch.ops import pool_fused as pool_mod
     from kd_pointcloud_tpu_torch.train import (apply_frozen, best_checkpoint,
@@ -555,13 +567,44 @@ def main() -> int:
             f"{same_d2}")
         check(same_idx and same_d2,
               f"knn {site('knn', args)} is not bit-identical to knn_plain")
+    def fps_identical(args, label="", every_g=False):
+        """The FPS kernel against fps_plain at one site, bit for bit: at
+        the plan's G and, with every_g, at every G whose clusters fit the
+        card's SMs."""
+        xyz, m = args
+        B, N = xyz.shape[:2]
+        plan = fps_mod.fps_plan(B, N, fps_mod.card_clusters)
+        gs = [g for g in fps_mod.CLUSTER_SIZES if every_g and B * g
+              <= fps_mod.SMS and (g > 1 or N <= fps_mod.ONE_BLOCK_POINTS)]
+        with torch.inference_mode():
+            want = plain_fns["fps"](*args)
+            bad = {g: int((fps_mod._fps_cuda(xyz, m, g) != want).sum())
+                   for g in gs}
+            bad["plan"] = int((cuda_fns["fps"](*args) != want).sum())
+        log(f"  fps {label}{site('fps', args)} (plan G={plan}): indices "
+            f"differing from fps_plain by G {bad}")
+        check(not any(bad.values()),
+              f"fps {label}{site('fps', args)} is not bit-identical")
+
+    log("  fps: clusters of G blocks resident at once on this card "
+        + str({g: fps_mod.card_clusters(g) for g in fps_mod.CLUSTER_SIZES})
+        + "; plan G at B = 2, 6, 16: "
+        + str({b: fps_mod.fps_plan(b, N_POINTS, fps_mod.card_clusters)
+               for b in (2, 6, 16)}))
+    xyz0, m0 = calls["fps"][0]
+    for args in calls["fps"]:
+        fps_identical(args, every_g=True)
+    # ties: 512 points repeated 16 times, so equal distances fall in other
+    # lanes, warps and blocks; padding: N = 8000, off every multiple of 1024
+    tied = xyz0[:, :512].repeat(1, N_POINTS // 512, 1).contiguous()
+    fps_identical((tied, m0), "tie case ", every_g=True)
+    fps_identical((xyz0[:, :8000].contiguous(), 2000), "N=8000 ",
+                  every_g=True)
+    results["fps"]["match"] = (
+        "bit-identical at every eval, train and KD site, on duplicated "
+        "points and at N = 8000, at every cluster size")
+
     with torch.inference_mode():
-        for args in calls["fps"]:
-            k_out, p_out = cuda_fns["fps"](*args), plain_fns["fps"](*args)
-            bad = int((k_out != p_out).sum())
-            log(f"  fps {site('fps', args)}: {bad} indices differ")
-            check(bad == 0, "fps kernel is not bit-identical to fps_plain")
-        results["fps"]["match"] = "bit-identical"
 
         for args in calls["knn"]:
             knn_identical(args)
@@ -569,7 +612,12 @@ def main() -> int:
                                    "every eval, train and KD site")
 
         worst_ratio = 0.0
-        for args in calls["pool"]:
+        # K = 9: slots left empty in the kernel's tile of 32; N1 off every
+        # pass of queries
+        ragged = [(u, idx[:, :-5, :9].contiguous(), v[:, :-5].contiguous(),
+                   w, b) for u, idx, v, w, b in {
+                       a[0].shape[2]: a for a in calls["pool"]}.values()]
+        for args in calls["pool"] + ragged:
             ok_, op = cuda_fns["pool"](*args), plain_fns["pool"](*args)
             err = float((ok_ - op).abs().max())
             scale = float(op.abs().max())
@@ -823,11 +871,20 @@ def main() -> int:
         profile_device(lambda i: step(batch), N_PROFILED_STEPS, what)
 
     def time_path(sites, what):
-        """Each path kernel timed at its call sites of one step; the kNN
-        kernel first held bit for bit against knn_plain at each of them
-        (the launch plan changes with B * S)."""
+        """Each path kernel timed at its call sites of one step; the FPS
+        and kNN kernels first held bit for bit against fps_plain and
+        knn_plain at each of them (the launch plans change with B); FPS's
+        chain (its rounds without the distance pass, at the plan's G)
+        timed beside it."""
+        for args in sites["fps"]:
+            fps_identical(args)
         for args in sites["knn"]:
             knn_identical(args)
+        chain = 0.0
+        for xyz, m in sites["fps"]:
+            g = fps_mod.fps_plan(xyz.shape[0], xyz.shape[1],
+                                 fps_mod.card_clusters)
+            chain += cuda_ms(lambda: fps_skeleton(xyz, m, g), REPS, 3)
         times = {}
         for name in PATH_KERNELS:
             with (torch.inference_mode() if name != "pool_bwd"
@@ -837,6 +894,9 @@ def main() -> int:
             log(f"  {name} per {what}: {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
                 f"({t['bound_by']})")
+        times["fps"]["chain_ms"] = chain
+        log(f"  fps chain (the rounds' synchronisation alone) per {what}: "
+            f"{chain:.4f} ms")
         return times
 
     time_steps(step_k, batch, "8/15 train timing", "train step", TRAIN_BATCH)
@@ -1077,8 +1137,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 14, 15
     def timing(t, launches):
-        return dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
-                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+        row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
+                   bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+        if "chain_ms" in t:
+            row["chain_ms"] = t["chain_ms"]
+        return row
 
     kernel_rows = []
     for name in PATH_KERNELS:

@@ -42,8 +42,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
 # a cudaError_t as int
 _SIGNATURES = {
-    # xyz, B, N, M, out_idx, stream
-    "kdpc_fps": (_P, _I, _I, _I, _P, _P),
+    # xyz, B, N, M, blocks a cloud (G), out_idx, stream
+    "kdpc_fps": (_P, _I, _I, _I, _I, _P, _P),
+    # G, out count (no stream: an occupancy query)
+    "kdpc_fps_clusters": (_I, _P),
+    # as kdpc_fps: the rounds without their distance pass, for timing
+    "kdpc_fps_skeleton": (_P, _I, _I, _I, _I, _P, _P),
     # query, keys, B, S, N, K, lanes, queries a block, out_idx, out_d2,
     # stream
     "kdpc_knn": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),

@@ -4,10 +4,11 @@ v[b, n]) @ W^T + bias), forward and backward.
 Port of kd_pointcloud_tpu/ops/pallas/pool_fused.py pool_mlp_max for the
 single-layer MLP every cross layer builds. ``pool_plain`` is the plain
 version (the math of ``_pool_ref``), and its autograd is the plain version
-of the backward; ``pool_bwd_masked`` forms that backward from the max mask
-as the backward kernels do. The CUDA kernels are csrc/pool_fused.cu
-(forward) and csrc/pool_fused_bwd.cu (backward, as the JAX package's custom
-VJP): both
+of the backward; ``pool_tiled`` walks the forward as the forward kernel
+does (``pool_shape`` gives its tiles), and ``pool_bwd_masked`` forms the
+backward from the max mask as the backward kernels do. The CUDA kernels are
+csrc/pool_fused.cu (forward) and csrc/pool_fused_bwd.cu (backward, as the
+JAX package's custom VJP): both
 gather the rows of the key table u themselves, so the grouped (B, N, K, C)
 tensor never reaches device memory, and the backward recomputes the
 activations instead of saving them. The TPU's k-major layout and lane
@@ -27,6 +28,8 @@ from .gather import group_points
 
 KERNEL_C = (32, 64, 128, 256)
 KERNEL_BWD_K = 32     # the backward kernel's neighbour slots a query
+POOL_SLOTS = 32       # the forward kernel's neighbour slots a pass
+POOL_THREADS = 256    # the forward kernel's threads a block
 LEAKY_RATE = 0.1
 
 
@@ -59,6 +62,66 @@ def pool_plain(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
     (out, in) layout, bias (C,) -> (B, N1, C)."""
     h = leaky(group_points(u, idx) + v[:, :, None, :])
     return leaky(F.linear(h, weight, bias)).amax(dim=2)
+
+
+def pool_shape(C: int) -> dict:
+    """The forward kernel's tiles at width C (csrc/pool_fused.cu Shape<C>):
+    a thread of 256 holds 8 slots x 8 output channels; ``queries`` a pass
+    (all C output channels of POOL_SLOTS slots each), w resident or
+    streamed in tiles of ``i_tile`` input channels through two buffers,
+    the dynamic shared memory a block asks for (h0, w and the pass's
+    neighbour indices), and the blocks an SM its launch bounds aim at (two
+    at C <= 64; one with up to 255 registers above)."""
+    cg = min(C // 8, 8)                  # channel lanes of a warp
+    qw = 32 // (4 * cg)                  # queries a warp
+    warps_q = C // (8 * cg)              # warps a query
+    queries = POOL_THREADS // 32 * qw // warps_q
+    rows = queries * POOL_SLOTS
+    tiled = C > 64
+    i_tile = 16 if C == 256 else (32 if tiled else C)
+    bufs = 2 if tiled else 1
+    smem = 4 * (rows * (C + 4) + bufs * C * (i_tile + 4) + rows)
+    return dict(queries=queries, rows=rows, w_tiled=tiled, i_tile=i_tile,
+                smem_bytes=smem, blocks_sm=1 if tiled else 2)
+
+
+def pool_tiled(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's walk in torch, for the tests: passes of
+    pool_shape(C)["queries"] queries of one cloud x POOL_SLOTS slots (K in
+    chunks of POOL_SLOTS; a slot past K or a query past N1 is a zero row,
+    left out of the max), h0 = leaky(u[idx] + v) formed once a row, p
+    summed over i-tiles of ``i_tile`` input channels in ascending order,
+    + bias, leaky, and the running max over the chunks. Same shapes as
+    pool_plain, which it equals to float32 rounding (other summation
+    order)."""
+    B, _, C = u.shape
+    _, N1, K = idx.shape
+    shape = pool_shape(C)
+    QP, IT = shape["queries"], shape["i_tile"]
+    q = torch.arange(QP)[:, None]
+    out = torch.empty(B, N1, C, dtype=u.dtype)
+    with torch.no_grad():
+        for b in range(B):
+            for q0 in range(0, N1, QP):
+                nq = min(QP, N1 - q0)
+                n = (q0 + q).clamp(max=N1 - 1)
+                best = torch.full((QP, C), float("-inf"), dtype=u.dtype)
+                for k0 in range(0, K, POOL_SLOTS):
+                    s = k0 + torch.arange(POOL_SLOTS)[None, :]
+                    ok = (q < nq) & (s < K)                   # (QP, slots)
+                    ids = torch.where(ok, idx[b, n, s.clamp(max=K - 1)], -1)
+                    h = F.leaky_relu(u[b, ids.clamp(min=0)] + v[b, n],
+                                     LEAKY_RATE)
+                    h = torch.where(ok[..., None], h, 0.0)
+                    acc = torch.zeros(QP, POOL_SLOTS, C, dtype=u.dtype)
+                    for i0 in range(0, C, IT):
+                        acc = acc + h[..., i0:i0 + IT] @ weight[:, i0:i0 + IT].T
+                    val = F.leaky_relu(acc + bias, LEAKY_RATE)
+                    val = torch.where(ok[..., None], val, float("-inf"))
+                    best = torch.maximum(best, val.amax(dim=1))
+                out[b, q0:q0 + nq] = best[:nq]
+    return out
 
 
 def pool_bwd_masked(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
@@ -124,6 +187,9 @@ def _pool_cuda(u, idx, v, weight, bias):
     _, N1, K = idx.shape
     if C not in KERNEL_C:
         raise ValueError(f"pool kernel takes C in {KERNEL_C}, got {C}")
+    if u.data_ptr() % 16 or v.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError("pool kernel reads u, v and weight as float4: "
+                         "their data must be 16-byte aligned")
     out = torch.empty(B, N1, C, dtype=torch.float32, device=u.device)
     kernels.launch("pool", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), B, N1, N2, K, C,
