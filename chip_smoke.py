@@ -4,12 +4,15 @@ NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout; needs 1 card
 
-It drives the port's three paths -- the teacher's eval forward at batch 1
-with 8192 points per cloud, through eval.evaluate_model; the teacher's
-train step at batch 3, through train.make_train_step; and knowledge
-distillation of a lighttoken_res student from the frozen teacher at batch
-8 (configs/distill_kd.yaml), through train.make_distill_step -- and holds
-each hand-written kernel against its plain PyTorch version. Phases, each
+It drives the port's paths -- the teacher's eval forward at batch 1 with
+8192 points per cloud, through eval.evaluate_model; the teacher's train
+step at batch 3, through train.make_train_step; knowledge distillation of
+a lighttoken_res student from the frozen teacher at batch 8
+(configs/distill_kd.yaml), through train.make_distill_step; the same into
+the halved-width `student` preset (bottleneck blocks, a C = 16 cost volume
+at l0); and the eval forwards of the student presets (student,
+serving_v3's coarse warp, student2, non_linear) -- and holds each
+hand-written kernel against its plain PyTorch version. Phases, each
 printing flushed lines as it goes:
 
   1. device: name, count, power limit (nvidia-smi), torch and CUDA versions;
@@ -85,10 +88,28 @@ printing flushed lines as it goes:
  13. a checkpoint round trip of the distilled student: saved with its
      optimizer, restored into a fresh model and optimizer, the eval flows
      of both bit-equal;
- 14. one {"kernels": [...]} line (times per KD step for the kernels of
-     the paths, the train step's and the eval forward's beside them; the
-     attic kernels at their phase-9 shapes);
- 15. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+ 14. the pool kernels at C = 16, on the three l0 pool sites of a batch-8
+     `student` train forward (K = 32, N1 = N2 = 8192) and at K = 9 with N1
+     off every query tile: forward within 1e-4 x max|plain|, backward
+     within POOL_BWD_TOL, with the tie and ragged cases at C = 16 and d_v
+     alone bit-equal; ptxas's registers, shared memory and spills of the
+     C = 16 template instances;
+ 15. the student KD path: one distill step of `student` (seed 0) from the
+     frozen teacher (seed 1), batch 8, biDirectionLoss (gamma 0.3, gamma2
+     0.3, beta 0.8; flow-only, as the student's features are half the
+     teacher's width), Adam lr 1e-3, weight decay 1e-4, through the
+     kernels and the plain versions, held as in phase 10;
+ 16. student KD timing as in phase 11, with the C = 16 sites' sums;
+ 17. the eval forwards of student, serving_v3, student2 and non_linear at
+     batch 1 through evaluate_model: launches (FPS 1, kNN 19, pool 12;
+     serving_v3's l0 warp search of 8192 x 8192 replaced by one of 2048 x
+     2048), flows against the plain versions as in phase 4; student and
+     serving_v3 timed as in phase 5;
+ 18. one {"kernels": [...]} line (times per KD step for the kernels of
+     the paths, the train step's, the eval forward's and the student KD
+     step's beside them, and the pool's C = 16 sites; the attic kernels
+     at their phase-9 shapes);
+ 19. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -127,6 +148,13 @@ KD_BATCH = 8
 KD_LOSS = "biDirection_loss_ht"
 KD_ARGS = dict(gamma=0.3, beta=0.8, hint_layers=[2, 3])
 TEACHER_SEED, STUDENT_SEED = 1, 0
+# the halved-width student: its features are half the teacher's width, so
+# the hint losses do not apply; biDirectionLoss is flow-only (gamma, gamma2
+# 0.3, beta 0.8), with the same Adam lr 1e-3, weight decay 1e-4
+STUDENT_LOSS = "biDirectionLoss"
+STUDENT_LOSS_ARGS = dict(gamma=0.3, gamma2=0.3, beta=0.8)
+EVAL_PRESETS = ("student", "serving_v3", "student2", "non_linear")
+TIMED_PRESETS = ("student", "serving_v3")
 FPS_PRUNED_BATCHES = (2, 6, 16)    # stacked clouds: eval, train, KD forward
 ATTIC_TOL = 1e-4                   # x max|plain|: float32 sums, other order
 # the backward kernel adds d_u, d_weight and d_bias with float atomics, in
@@ -146,6 +174,9 @@ PER_FORWARD = {"fps": 1, "knn": 19, "pool": 12, "pool_bwd": 0,
 PER_TRAIN_STEP = dict(PER_FORWARD, pool_bwd=12)
 PER_KD_STEP = {"fps": 2, "knn": 38, "pool": 24, "pool_bwd": 12,
                "fps_pruned": 0, "cross_pool": 0}
+# launches by width of a student KD step at C = 16: the forward and the
+# backward of the l0 cross layer's three pools (every other site is wider)
+STUDENT_C16 = {"pool C=16": 3, "pool_bwd C=16": 3}
 PATH_KERNELS = ("fps", "knn", "pool", "pool_bwd")
 # a kernel's name, not the tail of a longer one (cross_pool_kernel is not
 # pool_kernel); mangled names put the name's length (digits) before it
@@ -463,7 +494,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/15 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/19 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -473,7 +504,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/15 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/19 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -525,6 +556,7 @@ def main() -> int:
     pairs = synthetic_pairs(N_METRIC_PAIRS + N_TIMED_PAIRS + 1, N_POINTS,
                             seed=SEED)
     dev_pairs = [[torch.from_numpy(a)[None].cuda() for a in p] for p in pairs]
+    timed = dev_pairs[N_METRIC_PAIRS + 1:]
     with swapped(recorder(calls)), torch.inference_mode():
         model(*dev_pairs[0][:4])
     torch.cuda.synchronize()
@@ -532,7 +564,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/15 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/19 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -586,6 +618,114 @@ def main() -> int:
         check(not any(bad.values()),
               f"fps {label}{site('fps', args)} is not bit-identical")
 
+    def ragged_pool(sites):
+        """One pool site a width at K = 9 (slots left empty in the
+        kernel's tile of 32) and N1 off every pass of queries."""
+        return [(u, idx[:, :-5, :9].contiguous(), v[:, :-5].contiguous(), w,
+                 b) for u, idx, v, w, b in {
+                     a[0].shape[2]: a for a in sites}.values()]
+
+    def hold_pool(sites) -> float:
+        """The pool kernel against pool_plain at each site, within 1e-4 x
+        max|plain|; the worst error / max|plain|."""
+        worst = 0.0
+        with torch.inference_mode():
+            for args in sites:
+                ok_, op = cuda_fns["pool"](*args), plain_fns["pool"](*args)
+                err = float((ok_ - op).abs().max())
+                scale = float(op.abs().max())
+                worst = max(worst, err / scale)
+                results["pool"]["max_abs_err"] = max(
+                    results["pool"]["max_abs_err"], err)
+                log(f"  pool {site('pool', args)}: max abs err {err:.3g}, "
+                    f"max |plain| {scale:.3g}")
+                check(err <= 1e-4 * scale,
+                      f"pool {site('pool', args)}: {err}")
+        return worst
+
+    def hold_pool_bwd(cases) -> float:
+        """The pool backward kernel against autograd of pool_plain on each
+        (label, args) case: d_u, d_v, d_weight, d_bias within POOL_BWD_TOL
+        of their max |plain|; the worst ratio."""
+        worst = 0.0
+        for label, args in cases:
+            fwd_err = float((cuda_fns["pool"](*args[:5])
+                             - plain_fns["pool"](*args[:5])).abs().max())
+            got_k, got_p = cuda_fns["pool_bwd"](*args), pool_bwd_plain(*args)
+            ratios = []
+            for a_, x in zip(got_k, got_p):
+                err = float((a_ - x).abs().max())
+                ratios.append(err / max(float(x.abs().max()), 1e-30))
+                results["pool_bwd"]["max_abs_err"] = max(
+                    results["pool_bwd"]["max_abs_err"], err)
+            worst = max(worst, *ratios)
+            log(f"  pool_bwd {label}{site('pool_bwd', args)}: "
+                + " ".join(f"{r:.3g}" for r in ratios)
+                + f" (forward max abs err {fwd_err:.3g})")
+            check(max(ratios) <= POOL_BWD_TOL,
+                  f"pool_bwd {label}{site('pool_bwd', args)}: {ratios}")
+        return worst
+
+    def dv_alone(args) -> None:
+        """autograd asks only for the gradients it needs: d_v alone (the
+        mask kernel skips d_w and d_bias, the second kernel its scatter
+        into d_u) is the full call's d_v, which is summed in a fixed
+        order."""
+        full = cuda_fns["pool_bwd"](*args)
+        part = cuda_fns["pool_bwd"](*args, need=(False, True, False, False))
+        check(part[0] is None and part[2] is None and part[3] is None
+              and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
+
+    def hold_flows(model_, label="") -> None:
+        """Eval flows through the kernels against the same model on the
+        plain versions: max abs <= 1e-3, median <= 1e-5; FPS chains
+        equal."""
+        with torch.inference_mode():
+            out_k = model_(*dev_pairs[0][:4])
+            with swapped(lambda n, entry, plain: plain):
+                out_p = model_(*dev_pairs[0][:4])
+        for lvl in range(4):
+            fk, fp = out_k["flows"][lvl], out_p["flows"][lvl]
+            n_lvl = model_.cfg.npoints[lvl]
+            check(tuple(fk.shape) == (1, n_lvl, 3),
+                  f"{label}flow{lvl} {fk.shape}")
+            check(bool(torch.isfinite(fk).all()),
+                  f"{label}flow{lvl} not finite")
+            diff = (fk - fp).abs()
+            mx, med = float(diff.max()), float(diff.median())
+            log(f"  {label}flow{lvl} {tuple(fk.shape)}: kernels vs plain "
+                f"versions max abs {mx:.3g}, median {med:.3g}")
+            check(mx <= 1e-3 and med <= 1e-5,
+                  f"{label}flow{lvl}: {mx}, {med}")
+        for key in ("fps_idx1", "fps_idx2"):
+            check(all(torch.equal(a_, b_)
+                      for a_, b_ in zip(out_k[key], out_p[key])),
+                  f"{label}{key} differs from the plain versions'")
+
+    def time_forward(fwd, what="forward") -> None:
+        """fwd over the timed pairs after a warm-up: ms a pair, pairs/s,
+        peak memory; then a profile of N_PROFILED_PAIRS."""
+        fwd(*dev_pairs[N_METRIC_PAIRS][:4])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_pair = []
+        t_all = time.perf_counter()
+        for p_ in timed:
+            t = time.perf_counter()
+            fwd(*p_[:4])
+            torch.cuda.synchronize()
+            per_pair.append((time.perf_counter() - t) * 1e3)
+        total_s = time.perf_counter() - t_all
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {what}: {len(timed)} pairs in {total_s:.4f} s: "
+            f"{total_s / len(timed) * 1e3:.3f} ms/pair, "
+            f"{len(timed) / total_s:.3f} pairs/s (per pair median "
+            f"{statistics.median(per_pair):.3f} ms, min "
+            f"{min(per_pair):.3f}, max {max(per_pair):.3f}); peak memory "
+            f"{peak / 2**20:.1f} MiB")
+        profile_device(lambda i: fwd(*timed[i][:4]), N_PROFILED_PAIRS,
+                       "pair")
+
     log("  fps: clusters of G blocks resident at once on this card "
         + str({g: fps_mod.card_clusters(g) for g in fps_mod.CLUSTER_SIZES})
         + "; plan G at B = 2, 6, 16: "
@@ -611,22 +751,7 @@ def main() -> int:
         results["knn"]["match"] = ("bit-identical (index order and d2) at "
                                    "every eval, train and KD site")
 
-        worst_ratio = 0.0
-        # K = 9: slots left empty in the kernel's tile of 32; N1 off every
-        # pass of queries
-        ragged = [(u, idx[:, :-5, :9].contiguous(), v[:, :-5].contiguous(),
-                   w, b) for u, idx, v, w, b in {
-                       a[0].shape[2]: a for a in calls["pool"]}.values()]
-        for args in calls["pool"] + ragged:
-            ok_, op = cuda_fns["pool"](*args), plain_fns["pool"](*args)
-            err = float((ok_ - op).abs().max())
-            scale = float(op.abs().max())
-            worst_ratio = max(worst_ratio, err / scale)
-            results["pool"]["max_abs_err"] = max(
-                results["pool"]["max_abs_err"], err)
-            log(f"  pool {site('pool', args)}: max abs err {err:.3g}, "
-                f"max |plain| {scale:.3g}")
-            check(err <= 1e-4 * scale, f"pool {site('pool', args)}: {err}")
+        worst_ratio = hold_pool(calls["pool"] + ragged_pool(calls["pool"]))
         results["pool"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
     torch.cuda.synchronize()
     log("  verdict: fps and knn bit-identical, pool within bounds")
@@ -638,7 +763,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/15 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/19 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -647,23 +772,7 @@ def main() -> int:
     check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
           f"metrics not finite: {metrics}")
 
-    with torch.inference_mode():
-        out_k = model(*dev_pairs[0][:4])
-        with swapped(lambda n, entry, plain: plain):
-            out_p = model(*dev_pairs[0][:4])
-    for lvl in range(4):
-        fk, fp = out_k["flows"][lvl], out_p["flows"][lvl]
-        n_lvl = PRESETS["teacher"].npoints[lvl]
-        check(tuple(fk.shape) == (1, n_lvl, 3), f"flow{lvl} {fk.shape}")
-        check(bool(torch.isfinite(fk).all()), f"flow{lvl} not finite")
-        diff = (fk - fp).abs()
-        mx, med = float(diff.max()), float(diff.median())
-        log(f"  flow{lvl} {tuple(fk.shape)}: kernels vs plain versions max "
-            f"abs {mx:.3g}, median {med:.3g}")
-        check(mx <= 1e-3 and med <= 1e-5, f"flow{lvl}: {mx}, {med}")
-    for key in ("fps_idx1", "fps_idx2"):
-        check(all(torch.equal(a, b) for a, b in zip(out_k[key], out_p[key])),
-              f"{key} differs from the plain versions'")
+    hold_flows(model)
     deadline("eval path")
 
     # ---------------------------------------------------------------- 5
@@ -685,7 +794,7 @@ def main() -> int:
         works: the (operations, bytes) of each site where the call's
         arguments alone do not give them."""
         tot = dict(ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                   bound_ms=0.0)
+                   bound_ms=0.0, sites=[])
         for i, args in enumerate(sites):
             ms = cuda_ms(lambda: cuda_fns[name](*args), REPS, 3)
             pms = cuda_ms(lambda: plain_fns[name](*args), PLAIN_REPS, 1)
@@ -697,6 +806,9 @@ def main() -> int:
             tot["ops_ms"] += ops_ms
             tot["bytes_ms"] += bytes_ms
             tot["bound_ms"] += max(ops_ms, bytes_ms)
+            tot["sites"].append(dict(
+                site=site(name, args), ms=ms, plain_ms=pms, ops_ms=ops_ms,
+                bytes_ms=bytes_ms))
             log(f"  {name} {site(name, args)}: {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
@@ -704,7 +816,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/15 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/19 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -716,29 +828,9 @@ def main() -> int:
                 f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
     deadline("eval kernel timing")
 
-    fwd = make_eval_forward(model)
-    fwd(*dev_pairs[N_METRIC_PAIRS][:4])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    timed = dev_pairs[N_METRIC_PAIRS + 1:]
-    per_pair = []
-    t_all = time.perf_counter()
-    for p in timed:
-        t = time.perf_counter()
-        fwd(*p[:4])
-        torch.cuda.synchronize()
-        per_pair.append((time.perf_counter() - t) * 1e3)
-    total_s = time.perf_counter() - t_all
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  forward: {len(timed)} pairs in {total_s:.4f} s: "
-        f"{total_s / len(timed) * 1e3:.3f} ms/pair, "
-        f"{len(timed) / total_s:.3f} pairs/s (per pair median "
-        f"{statistics.median(per_pair):.3f} ms, min {min(per_pair):.3f}, "
-        f"max {max(per_pair):.3f}); peak memory {peak / 2**20:.1f} MiB")
+    time_forward(make_eval_forward(model))
+    del model
     deadline("forward timing")
-    profile_device(lambda i: fwd(*timed[i][:4]), N_PROFILED_PAIRS, "pair")
-    del model, fwd, out_k, out_p
-    deadline("forward profile")
 
     # ---------------------------------------------------------------- 6
     tmodel = BidPointFlowNet(PRESETS["teacher"], device="cuda",
@@ -771,7 +863,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/15 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/19 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -781,32 +873,10 @@ def main() -> int:
     cases = ([("", a) for a in bwd_sites + kd_bwd_sites]
              + [("tie case ", tie_case(*a)) for a in widths.values()]
              + [("ragged case ", ragged_case(*a)) for a in widths.values()])
-    worst_ratio = 0.0
-    for label, args in cases:
-        fwd_err = float((cuda_fns["pool"](*args[:5])
-                         - plain_fns["pool"](*args[:5])).abs().max())
-        got_k, got_p = cuda_fns["pool_bwd"](*args), pool_bwd_plain(*args)
-        ratios = []
-        for a, x in zip(got_k, got_p):
-            err = float((a - x).abs().max())
-            ratios.append(err / max(float(x.abs().max()), 1e-30))
-            results["pool_bwd"]["max_abs_err"] = max(
-                results["pool_bwd"]["max_abs_err"], err)
-        worst_ratio = max(worst_ratio, *ratios)
-        log(f"  pool_bwd {label}{site('pool_bwd', args)}: "
-            + " ".join(f"{r:.3g}" for r in ratios)
-            + f" (forward max abs err {fwd_err:.3g})")
-        check(max(ratios) <= POOL_BWD_TOL,
-              f"pool_bwd {label}{site('pool_bwd', args)}: {ratios}")
+    worst_ratio = hold_pool_bwd(cases)
     results["pool_bwd"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
-    # autograd asks only for the gradients it needs: d_v alone (the mask
-    # kernel skips d_w and d_bias, the second kernel its scatter into d_u)
-    # is the full call's d_v, which is summed in a fixed order
     for args in (bwd_sites[0], kd_bwd_sites[0]):
-        full = cuda_fns["pool_bwd"](*args)
-        part = cuda_fns["pool_bwd"](*args, need=(False, True, False, False))
-        check(part[0] is None and part[2] is None and part[3] is None
-              and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
+        dv_alone(args)
     log("  pool_bwd asked for d_v alone: equal to the full call's d_v "
         f"(batches {TRAIN_BATCH} and {KD_BATCH})")
     del kd_bwd_sites, kd_pool
@@ -819,7 +889,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/15 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/19 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -899,7 +969,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/15 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/19 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -915,7 +985,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/15 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/19 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1014,7 +1084,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/15 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/19 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1046,7 +1116,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/15 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/19 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1082,7 +1152,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/15 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/19 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1124,7 +1194,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/15 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/19 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1134,6 +1204,180 @@ def main() -> int:
           "checkpoint round trip")
     shutil.rmtree(ckpt_dir)
     deadline("checkpoint")
+
+    # ---------------------------------------------------------------- 14
+    # the student presets: the frozen teacher (seed 1) distils into the
+    # halved-width student (seed 0), whose l0 cost volume pools at C = 16
+    del student, fresh, fresh_opt, kd_step, kd_opt, eval_step
+    s_model = BidPointFlowNet(
+        PRESETS["student"], device="cuda",
+        generator=torch.Generator().manual_seed(STUDENT_SEED))
+    s_fwd_calls = {n: [] for n in points}
+    rec_student = copy.deepcopy(s_model).train()
+    with swapped(recorder(s_fwd_calls)), torch.no_grad():
+        rec_student(kd_batch["pos1"], kd_batch["pos2"], kd_batch["norm1"],
+                    kd_batch["norm2"])
+    del rec_student
+    c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
+    check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
+          f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
+    log(f"[14/19 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+        f"of a batch-{KD_BATCH} student train forward (cross0), pool "
+        f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
+    for line in ptxas_summary(info["log"]):
+        if "<16>" in line:
+            log(f"  {line}")
+    worst_ratio = hold_pool(c16 + ragged_pool(c16))
+    results["pool"]["match"] += (f"; C = 16 (student l0, B = {KD_BATCH}) "
+                                 f"{worst_ratio:.3g}")
+    c16_bwd = [(*args, torch.randn(args[2].shape, device="cuda",
+                                   generator=gen)) for args in c16]
+    worst_ratio = hold_pool_bwd([("", a_) for a_ in c16_bwd]
+                                + [("tie case ", tie_case(*c16_bwd[0])),
+                                   ("ragged case ",
+                                    ragged_case(*c16_bwd[0]))])
+    dv_alone(c16_bwd[0])
+    log("  pool_bwd at C = 16 asked for d_v alone: equal to the full call's")
+    results["pool_bwd"]["match"] += (f"; C = 16 (student l0, ties, ragged) "
+                                     f"{worst_ratio:.3g}")
+    del c16_bwd, c16, s_fwd_calls
+    deadline("pool at C = 16")
+
+    # ---------------------------------------------------------------- 15
+    s_plain = copy.deepcopy(s_model)
+    s_loss = make_named_loss(STUDENT_LOSS, STUDENT_LOSS_ARGS)
+    s_opt = make_optimizer(s_model, 1e-3, 1e-4)
+    s_step = make_distill_step(teacher, s_model, s_opt, loss_fn=s_loss)
+    s_step_p = make_distill_step(teacher, s_plain,
+                                 make_optimizer(s_plain, 1e-3, 1e-4),
+                                 loss_fn=s_loss)
+    kernels.reset_launches()
+    loss_k = float(s_step(kd_batch))
+    s_launches = dict(kernels.LAUNCHES)
+    s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
+    log(f"[15/19 student KD path] one distill step, teacher -> student, "
+        f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
+        f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
+    check(s_launches == PER_KD_STEP,
+          f"launches {s_launches}, expected {PER_KD_STEP}")
+    s_c16 = {k: s_widths.get(k, 0) for k in STUDENT_C16}
+    check(s_c16 == STUDENT_C16,
+          f"C = 16 launches {s_c16}, expected {STUDENT_C16}")
+    for name in ("pool", "pool_bwd"):
+        by_width = sum(n for k, n in s_widths.items()
+                       if k.startswith(f"{name} C="))
+        check(by_width == s_launches[name],
+              f"{name}: {by_width} launches by width, {s_launches[name]} "
+              f"in all")
+    with swapped(lambda n, entry, plain: plain):
+        loss_p = float(s_step_p(kd_batch))
+    check(kernels.LAUNCHES == s_launches,
+          "the plain distill step launched a kernel")
+    log(f"  loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "student loss differs")
+    worst, leaf, median, n_leaves, zero_leaves, top = compare_grads(
+        s_model, s_plain)
+    log(f"  student gradients: {n_leaves} leaves, error / max|plain| worst "
+        f"{worst:.3g} ({leaf}), median {median:.3g} (bound {GRAD_TOL}); "
+        f"{zero_leaves} zero-gradient leaves below 1e-5 of the largest "
+        f"gradient {top:.3g}")
+    bn_err = compare_stats(s_model, s_plain)
+    log(f"  student BatchNorm statistics: error / max|plain| {bn_err:.3g}")
+    check(bn_err <= 1e-5, f"BatchNorm statistics differ: {bn_err}")
+    t_same = all(torch.equal(v, t_state[k])
+                 for k, v in teacher.state_dict().items())
+    log(f"  teacher: parameters and statistics bit-unchanged {t_same}")
+    check(t_same and all(p.grad is None for p in teacher.parameters()),
+          "the teacher moved")
+    del s_plain, s_step_p
+    deadline("student KD path")
+
+    # ---------------------------------------------------------------- 16
+    time_steps(s_step, kd_batch, "16/19 student KD timing", "KD step",
+               KD_BATCH)
+    s_calls = {n: [] for n in points}
+    rec_student = copy.deepcopy(s_model).train()
+    with swapped(recorder(s_calls)), torch.no_grad():
+        apply_frozen(teacher, kd_batch)
+        rec_student(kd_batch["pos1"], kd_batch["pos2"], kd_batch["norm1"],
+                    kd_batch["norm2"])
+    del rec_student
+    got = {n: len(c) for n, c in s_calls.items()}
+    check(got == {n: PER_KD_STEP[n] for n in points},
+          f"call sites per student KD step {got}")
+    s_sites = dict(s_calls, pool_bwd=[
+        (*args, torch.randn(args[2].shape, device="cuda", generator=gen))
+        for args in s_calls["pool"][PER_FORWARD["pool"]:]])
+    s_times = time_path(s_sites, "student KD step")
+    c16_times = {}
+    for name in ("pool", "pool_bwd"):
+        rows = [r for r in s_times[name]["sites"] if r["site"].endswith(
+            "C=16")]
+        ops_ms = sum(r["ops_ms"] for r in rows)
+        bytes_ms = sum(r["bytes_ms"] for r in rows)
+        check(len(rows) == s_c16[f"{name} C=16"],
+              f"{name}: {len(rows)} C = 16 call sites timed, "
+              f"{s_c16[f'{name} C=16']} launched by the KD step")
+        c16_times[name] = dict(
+            launches=s_c16[f"{name} C=16"], ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ops_ms=ops_ms, bytes_ms=bytes_ms)
+        t = c16_times[name]
+        log(f"  {name} at its {t['launches']} C = 16 sites: {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"(operations {ops_ms:.5f}, bytes {bytes_ms:.5f})")
+    del s_sites, s_calls, s_step, s_opt, s_model
+    deadline("student KD timing")
+
+    # ---------------------------------------------------------------- 17
+    log(f"[17/19 student presets' eval forwards] batch 1, {N_POINTS} "
+        f"points, through evaluate_model, each against its plain versions; "
+        f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
+    teacher_knn = sorted(site("knn", args) for args in calls["knn"])
+    for name in EVAL_PRESETS:
+        pmodel = BidPointFlowNet(
+            PRESETS[name], device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        kernels.reset_launches()
+        metrics = evaluate_model(pmodel, pairs[:1])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
+        check(launches == PER_FORWARD,
+              f"{name}: launches {launches}, expected {PER_FORWARD}")
+        check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
+              f"{name}: metrics not finite: {metrics}")
+        p_calls = {n: [] for n in points}
+        with swapped(recorder(p_calls)), torch.inference_mode():
+            pmodel(*dev_pairs[0][:4])
+        knn_sites = sorted(site("knn", args) for args in p_calls["knn"])
+        warp0 = f"k=3 B=1 {N_POINTS}x{N_POINTS}"
+        if PRESETS[name].coarse_warp:
+            coarse = f"k=3 B=1 {PRESETS[name].npoints[1]}x" \
+                     f"{PRESETS[name].npoints[1]}"
+            want_knn = sorted([s_ for s_ in teacher_knn if s_ != warp0]
+                              + [coarse])
+            check(knn_sites == want_knn and warp0 not in knn_sites,
+                  f"{name}: kNN sites {knn_sites}")
+            note = (f"; the l0 warp's {warp0} search is gone, a {coarse} "
+                    f"one in its place")
+        else:
+            check(knn_sites == teacher_knn, f"{name}: kNN sites {knn_sites}")
+            note = ""
+        c16 = widths.get("pool C=16", 0)
+        want_c16 = 3 if PRESETS[name].level_channels[0] == 16 else 0
+        check(c16 == want_c16,
+              f"{name}: {c16} pool launches at C = 16, expected {want_c16}")
+        log(f"  {name}: launches a forward {launches}, by width "
+            f"{widths}{note}")
+        hold_flows(pmodel, f"{name} ")
+        del p_calls
+        if name in TIMED_PRESETS:
+            time_forward(make_eval_forward(pmodel), f"{name} forward")
+        del pmodel
+        deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 14, 15
     def timing(t, launches):
@@ -1153,6 +1397,8 @@ def main() -> int:
             match=results[name]["match"],
             per=f"KD step, batch {KD_BATCH}, {N_POINTS} points",
             train_step=timing(train_times[name], train_launches[name]),
+            student_kd_step=timing(s_times[name], s_launches[name]),
+            **({"c16_sites": c16_times[name]} if name in c16_times else {}),
             eval_forward=None if e is None else timing(
                 e, eval_launches[name] // N_METRIC_PAIRS)))
     kernel_rows.append(dict(
@@ -1173,9 +1419,9 @@ def main() -> int:
         per=f"L=1 at the {len(cp_sites)} pool sites of an eval forward; on "
             "no path",
         two_layers=timing(cp2_times, 0)))
-    log("[14/15 kernels]")
+    log("[18/19 kernels]")
     log(json.dumps({"kernels": kernel_rows}))
-    log(f"[15/15 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[19/19 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,7 +25,10 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.gather import group_points
-from ..ops.pool_fused import KERNEL_C, leaky
+from ..ops.pool_fused import leaky
+
+# the widths csrc/cross_pool.cu instantiates
+KERNEL_C = (32, 64, 128, 256)
 
 
 def cross_pool_plain(u, v, idx, weights: Sequence[torch.Tensor],

@@ -17,22 +17,27 @@
 //
 // What bounds it on an H100: operations -- 2 K C^2 flops a query against
 // (K + 2C) * 4 bytes of traffic, in fp32 on the CUDA cores (e.g. 65 kflop
-// against 0.4 kB at C = 32, K = 32). Read as a matrix product, the rows are
+// against 0.4 kB at C = 32, K = 32; at C = 16, 16 kflop, but each slot's
+// 512 flops wait on a 64-byte row of u gathered from L2, where the 4 MB
+// table of the student's l0 site at B = 8 stays, so there the gather sets
+// the time). Read as a matrix product, the rows are
 // the (query, neighbour slot) pairs, h0 = leaky(u[idx] + v) is the left
 // operand, formed on the fly, and w^T the right one; the max over a query's
 // rows is the epilogue. The design:
 //
 // - Each gathered row is formed once. A pass is QP = 512 / C queries x 32
-//   slots (64-512 rows, 64 kB of h0 at every width), and the block covers
+//   slots (64-1024 rows, 64 kB of h0 at every width), and the block covers
 //   all C output channels of those rows, so no block gathers a row that
 //   another block also gathers. A slot past K is zero and left out of the
 //   max; K > 32 takes several passes over the same queries.
 // - A register tile of 8 slots x 8 output channels a thread: for every 4
 //   input channels a thread reads 8 float4 of h0 (its slots s, s + 4, ...)
 //   and 8 float4 of w (its channels o, o + CG, ...), 16 shared-memory loads
-//   for 256 FMAs. Rows of h0 and w are padded (C + 4 and IT + 4 floats) so
-//   that the lanes' float4 reads fall in distinct bank groups; lanes that
-//   share slots or channels read the same address, a broadcast.
+//   for 256 FMAs. At C = 16 (the student's l0 cost volume) a warp holds 4
+//   queries of 2 channel lanes each, as at C = 32 it holds 2 of 4. Rows of
+//   h0 and w are padded (C + 4 and IT + 4 floats) so that the lanes'
+//   float4 reads fall in distinct bank groups; lanes that share slots or
+//   channels read the same address, a broadcast.
 // - w stays in shared memory for the block's life at C <= 64. At C = 128 and
 //   256 (64 and 256 kB) it is streamed in tiles of IT = 32 and 16 input
 //   channels through two buffers by cp.async, the next tile in flight while
@@ -74,9 +79,9 @@ __device__ __forceinline__ float leaky(float x) {
 template <int C>
 struct Shape {
   static constexpr int kCG = C / kTC < 8 ? C / kTC : 8;  // channel lanes
-  static constexpr int kWarpC = kCG * kTC;       // channels a warp: 32 or 64
-  static constexpr int kQW = 32 / (4 * kCG);     // queries a warp: 2 or 1
-  static constexpr int kWarpsQ = C / kWarpC;     // warps a query: 1, 1, 2, 4
+  static constexpr int kWarpC = kCG * kTC;   // channels a warp: 16, 32, 64
+  static constexpr int kQW = 32 / (4 * kCG);     // queries a warp: 4, 2, 1
+  static constexpr int kWarpsQ = C / kWarpC;  // warps a query: 1, 1, 1, 2, 4
   static constexpr int kQP = kThreads / 32 * kQW / kWarpsQ;  // queries a pass
   static constexpr int kRows = kQP * kSlots;
   static constexpr int kHS = C + 4;              // padded h0 row
@@ -89,7 +94,7 @@ struct Shape {
   // most of a pass and up to 255 registers let a tile's i-loop unroll
   static constexpr int kBlocksSM = kWTiled ? 1 : 2;
   // the i-loop unrolled where the registers allow it (not at C = 32, which
-  // spills at two blocks' 128 registers)
+  // spills at two blocks' 128 registers, nor at C = 16)
   static constexpr bool kUnroll = C >= 64;
   static constexpr int kSmemFloats = kRows * kHS + kWBufs * C * kWS + kRows;
   static_assert(kRows * (C / 4) % (kThreads * kBatch) == 0, "gather split");
@@ -327,6 +332,8 @@ extern "C" int kdpc_pool(const float* u, const int* idx, const float* v,
                          cudaStream_t stream) {
   if (b <= 0 || n1 <= 0 || n2 <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   switch (c) {
+    case 16:
+      return (int)launch<16>(u, idx, v, w, bias, b, n1, n2, k, out, stream);
     case 32:
       return (int)launch<32>(u, idx, v, w, bias, b, n1, n2, k, out, stream);
     case 64:

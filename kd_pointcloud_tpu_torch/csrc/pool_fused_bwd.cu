@@ -36,19 +36,22 @@
 //    thread 4 slots x 8 channels, reading h0 and w as float4s, i the outer
 //    loop, so every p keeps the forward's fmaf order -- and forms the max
 //    mask with warp shuffles over the 8 threads that hold a query's 32
-//    slots. Per (query, output
+//    slots (at C = 16 a warp is one query x 16 channels, a thread 4 slots
+//    x 4 channels, so a pass is still 8 queries). Per (query, output
 //    channel) it writes the mask's slot bits, the bits of those whose p < 0
 //    (leaky' = 0.1) and the cotangent's share ct / count, K times smaller
 //    than a dense d_p; the panel-0 blocks also write the sign bits of h0's
 //    pre-activation. Then, still in the block, d_w and d_bias take d_p x
 //    h0 at the masked slots only, into registers (a thread owns CO / 8
 //    output channels x C / 32 input channels of its panel; at C = 32 one
-//    output channel x all 32 inputs, for its warp's query) for the whole
-//    range, and leave it with one atomicAdd an entry. The gather reads a
-//    pass's neighbour indices first, so its float4 loads of u and v are
-//    independent and many are in flight: with one block an SM at C = 256,
-//    a gather that waits on each index in turn takes longer than the
-//    product.
+//    output channel x all 32 inputs, for its warp's query; at C = 16 one
+//    output channel x 8 inputs, a half-warp taking each half of the
+//    inputs) for the whole range, and leave it with one atomicAdd an
+//    entry (at C <= 32 after the 8 warps' partials are summed in the
+//    block). The gather reads a pass's neighbour indices first, so its
+//    float4 loads of u and v are independent and many are in flight:
+//    with one block an SM at C = 256, a gather that waits on each index
+//    in turn takes longer than the product.
 // 2. pool_bwd_kernel: a thread owns one input channel i of a query (of
 //    two at C = 256) and walks the output channels o in ascending order,
 //    adding for each masked slot s d_p[s, o] w[o, i] into its own column of
@@ -92,16 +95,25 @@ __device__ __forceinline__ float leaky(float x) {
   return x >= 0.f ? x : 0.1f * x;
 }
 
+// words of h0's pre-activation sign bits a (query, slot): 32 channels a
+// word, one word (16 bits used) at C = 16
+__host__ __device__ constexpr int sign_words(int c) { return (c + 31) / 32; }
+
 template <int C>
 struct MaskShape {
   static constexpr int kCO = C < 64 ? C : 64;    // output channels a block
   static constexpr int kPanels = C / kCO;
-  static constexpr int kTQ = kThreads / kCO;     // queries a pass
+  static constexpr int kTC = C < 32 ? 4 : 8;     // output channels a thread
+  static constexpr int kWC = 4 * kTC;            // output channels a warp
+  static constexpr int kWarpsQ = kCO / kWC;      // warps a query
+  static constexpr int kTQ = kThreads / 32 / kWarpsQ;  // queries a pass
   static constexpr int kHS = C + 4;              // padded h0 row
-  static constexpr int kOW = kCO / 8;            // d_w rows a warp
-  static constexpr int kIL = C / 32;             // d_w columns a lane
+  static constexpr int kOW = kCO / 8;            // d_w rows a warp (C > 32)
+  static constexpr int kIL = C / 32;             // d_w columns a lane (C > 32)
+  static constexpr int kLW = C / 4 < 8 ? C / 4 : 8;  // lanes a sign word
   static constexpr int kSmemFloats =
       kTQ * kSlots * kHS + C * kCO + 3 * kTQ * kCO + kTQ * kSlots;
+  static_assert(kTQ * kWarpsQ * 32 == kThreads, "a warp a query panel");
 };
 
 template <int C>
@@ -117,7 +129,8 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
                          unsigned* __restrict__ hsign, float* __restrict__ d_w,
                          float* __restrict__ d_bias) {
   using S = MaskShape<C>;
-  constexpr int CO = S::kCO, TQ = S::kTQ, HS = S::kHS;
+  constexpr int CO = S::kCO, TQ = S::kTQ, HS = S::kHS, TC = S::kTC;
+  constexpr int HW = sign_words(C);
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);  // [TQ * 32][HS]: h0
   float* wt = hs + TQ * kSlots * HS;             // [C][CO]: w[o0 + oo][i]
@@ -137,25 +150,29 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // the product's thread: query qw of the pass, slots sg + 8 t (t < 4),
-  // output channels ob + 8 cg .. ob + 8 cg + 7 of the panel; rows 8 apart
-  // and a row stride of C + 4 floats put the 8 sg's float4 reads of h0 in
-  // 8 different 16-byte bank groups
-  const int qw = warp / (CO / 32), ob = (warp % (CO / 32)) * 32;
+  // output channels ob + TC cg .. ob + TC cg + TC - 1 of the panel; rows 8
+  // apart and a row stride of C + 4 floats put the 8 sg's float4 reads of
+  // h0 in 8 different 16-byte bank groups
+  const int qw = warp / S::kWarpsQ, ob = warp % S::kWarpsQ * S::kWC;
   const int sg = lane >> 2, cg = lane & 3;
 
   for (int e = threadIdx.x; e < C * CO; e += kThreads) {
     const int i = e % C, oo = e / C;  // coalesced reads of w's rows
     wt[i * CO + oo] = w[(size_t)(o0 + oo) * C + i];
   }
-  float bo[8];
+  float bo[TC];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) bo[c] = bias[o0 + ob + cg * 8 + c];
+  for (int c = 0; c < TC; ++c) bo[c] = bias[o0 + ob + cg * TC + c];
 
-  // d_w's partial: at C = 32 a lane owns output channel `lane` and all 32
-  // inputs for its warp's query (the warps' partials are summed at the
-  // end); wider, a warp owns kOW output channels, a lane inputs lane + 32 c
-  constexpr bool kByRow = C == 32;
-  constexpr int kRows = kByRow ? 1 : S::kOW, kCols = kByRow ? 32 : S::kIL;
+  // d_w's partial: at C <= 32 a lane owns output channel lane % C and
+  // C / kSplit inputs from part * C / kSplit, for its warp's query (the
+  // warps' partials are summed at the end); wider, a warp owns kOW output
+  // channels, a lane inputs lane + 32 c
+  constexpr bool kByRow = C <= 32;
+  constexpr int kSplit = kByRow ? 32 / C : 1;   // lanes an output channel
+  constexpr int kRows = kByRow ? 1 : S::kOW;
+  constexpr int kCols = kByRow ? C / kSplit : S::kIL;
+  const int part = kByRow ? lane / C : 0;
   float dw[kRows][kCols], db[kRows];
 #pragma unroll
   for (int a = 0; a < kRows; ++a) {
@@ -192,27 +209,29 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
       *reinterpret_cast<float4*>(hs + r * HS + 4 * i4) =
           make_float4(leaky(pre.x), leaky(pre.y), leaky(pre.z),
                       leaky(pre.w));
+      // kLW lanes hold a word's channels (kThreads is a multiple of C4,
+      // so lane % C4 == i4)
       unsigned word = ((pre.x >= 0.f ? 1u : 0u) | (pre.y >= 0.f ? 2u : 0u) |
                        (pre.z >= 0.f ? 4u : 0u) | (pre.w >= 0.f ? 8u : 0u))
-                      << (4 * (lane & 7));
-      word |= __shfl_xor_sync(kFull, word, 1);
-      word |= __shfl_xor_sync(kFull, word, 2);
-      word |= __shfl_xor_sync(kFull, word, 4);
-      if (blockIdx.y == 0 && (lane & 7) == 0 && n < q_end)
-        hsign[((qb + n) * kSlots + r % kSlots) * (C / 32) + i4 / 8] = word;
+                      << (4 * (lane % S::kLW));
+#pragma unroll
+      for (int x = 1; x < S::kLW; x <<= 1)
+        word |= __shfl_xor_sync(kFull, word, x);
+      if (blockIdx.y == 0 && lane % S::kLW == 0 && n < q_end)
+        hsign[((qb + n) * kSlots + r % kSlots) * HW + i4 / 8] = word;
     }
     __syncthreads();
 
     // 2. p = leaky(h0 . w[o] + bias[o]) in the forward's operation order,
     //    then the max mask over the query's slots and the share
     {
-      float acc[4][8];
+      float acc[4][TC];
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[t][c] = 0.f;
+        for (int c = 0; c < TC; ++c) acc[t][c] = 0.f;
       const float* hrow = hs + (qw * kSlots + sg) * HS;
-      const float* wcol = wt + ob + cg * 8;
+      const float* wcol = wt + ob + cg * TC;
 #pragma unroll 2
       for (int i = 0; i < C; i += 4) {
         float4 h[4];
@@ -221,25 +240,29 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
           h[t] = *reinterpret_cast<const float4*>(hrow + 8 * t * HS + i);
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
-          const float4 wa =
-              *reinterpret_cast<const float4*>(wcol + (i + ii) * CO);
-          const float4 wb =
-              *reinterpret_cast<const float4*>(wcol + (i + ii) * CO + 4);
-          const float wv[8] = {wa.x, wa.y, wa.z, wa.w,
-                               wb.x, wb.y, wb.z, wb.w};
+          float wv[TC];
+#pragma unroll
+          for (int f = 0; f < TC / 4; ++f) {
+            const float4 wf =
+                *reinterpret_cast<const float4*>(wcol + (i + ii) * CO + 4 * f);
+            wv[4 * f] = wf.x;
+            wv[4 * f + 1] = wf.y;
+            wv[4 * f + 2] = wf.z;
+            wv[4 * f + 3] = wf.w;
+          }
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             const float hv = ii == 0 ? h[t].x : ii == 1 ? h[t].y
                              : ii == 2 ? h[t].z : h[t].w;
 #pragma unroll
-            for (int c = 0; c < 8; ++c)
+            for (int c = 0; c < TC; ++c)
               acc[t][c] = fmaf(hv, wv[c], acc[t][c]);
           }
         }
       }
       const int n = q0 + qw;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < TC; ++c) {
         float val[4];
         bool neg[4];
         float m = -__int_as_float(0x7f800000);
@@ -267,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
           nb |= __shfl_xor_sync(kFull, nb, x);
         }
         if (sg == c) {  // one thread of the 8 writes channel c
-          const int oo = ob + cg * 8 + c;
+          const int oo = ob + cg * TC + c;
           unsigned h = 0u, g = 0u;
           float s = 0.f;
           if (n < q_end) {
@@ -289,14 +312,14 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
     if constexpr (kByRow) {
       if (!d_w) continue;
       __syncthreads();
-      const int q = warp, oo = lane;  // CO = 32, TQ = 8 queries = warps
+      const int q = warp, oo = lane % C;  // CO = C, TQ = 8 queries = warps
       const unsigned m = mk[q * CO + oo], nm = ng[q * CO + oo];
       const float s = sh[q * CO + oo];
       for (unsigned bits = m; bits; bits &= bits - 1) {
         const int slot = __ffs(bits) - 1;
         const float g = (nm >> slot) & 1u ? s * 0.1f : s;
         db[0] += g;
-        const float* hr = hs + (q * kSlots + slot) * HS;
+        const float* hr = hs + (q * kSlots + slot) * HS + part * kCols;
 #pragma unroll
         for (int i4 = 0; i4 < kCols / 4; ++i4) {
           const float4 h = *reinterpret_cast<const float4*>(hr + 4 * i4);
@@ -333,22 +356,23 @@ __global__ void __launch_bounds__(kThreads, C <= 128 ? 2 : 1)
     // the 8 warps' partials summed through shared memory (hs is free),
     // then one atomicAdd an entry of the block's panel
     __syncthreads();
-    float* red = hs;                    // [warp][i][33]: padded rows
-    float* red_b = hs + 8 * 32 * 33;    // [warp][o]
+    float* red = hs;                      // [warp][i][C + 1]: padded rows
+    float* red_b = hs + 8 * C * (C + 1);  // [warp][o]
+    const int oo = lane % C;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i)
-      red[(warp * 32 + i) * 33 + lane] = dw[0][i];
-    red_b[warp * 32 + lane] = db[0];
+    for (int c = 0; c < kCols; ++c)
+      red[(warp * C + part * kCols + c) * (C + 1) + oo] = dw[0][c];
+    if (part == 0) red_b[warp * C + oo] = db[0];
     __syncthreads();
-    for (int e = threadIdx.x; e < 32 * 32; e += kThreads) {
-      const int i = e % 32, oo = e / 32;
+    for (int e = threadIdx.x; e < C * C; e += kThreads) {
+      const int i = e % C, o = e / C;
       float sum = 0.f;
-      for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * 32 + i) * 33 + oo];
-      atomicAdd(d_w + (size_t)(o0 + oo) * C + i, sum);
+      for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * C + i) * (C + 1) + o];
+      atomicAdd(d_w + (size_t)(o0 + o) * C + i, sum);
     }
-    if (threadIdx.x < 32 && d_bias) {
+    if (threadIdx.x < C && d_bias) {
       float sum = 0.f;
-      for (int w8 = 0; w8 < 8; ++w8) sum += red_b[w8 * 32 + threadIdx.x];
+      for (int w8 = 0; w8 < 8; ++w8) sum += red_b[w8 * C + threadIdx.x];
       atomicAdd(d_bias + o0 + threadIdx.x, sum);
     }
   } else {
@@ -368,8 +392,10 @@ struct GradShape {
   static constexpr int kQR = C == 256 ? 2 : 1;       // queries a thread
   static constexpr int kTQ = kThreads / C * kQR;     // queries a pass
   static constexpr bool kWShared = C <= 128;
-  static constexpr int kSmemFloats =
-      (kWShared ? C * C : 0) + kTQ * kSlots * C + 4 * kTQ * C;
+  static constexpr int kQWords = kSlots * sign_words(C);  // sign words a query
+  static constexpr int kSmemFloats = (kWShared ? C * C : 0) +
+                                     kTQ * kSlots * C + 3 * kTQ * C +
+                                     kTQ * kQWords;
 };
 
 // d_h0 from the mask, then d_g, d_v and d_u: a thread owns one input
@@ -391,7 +417,8 @@ __global__ void __launch_bounds__(kThreads)
   unsigned* mk = reinterpret_cast<unsigned*>(dh + TQ * kSlots * C);
   unsigned* ng = mk + TQ * C;                           // [TQ][C]
   float* sh = reinterpret_cast<float*>(ng + TQ * C);    // [TQ][C]
-  unsigned* sg = reinterpret_cast<unsigned*>(sh + TQ * C);  // [TQ][32][C/32]
+  unsigned* sg = reinterpret_cast<unsigned*>(sh + TQ * C);  // [TQ][kQWords]
+  constexpr int HW = sign_words(C), QW = S::kQWords;
 
   const int b = blockIdx.z;
   const size_t qb = (size_t)b * n1;
@@ -406,22 +433,22 @@ __global__ void __launch_bounds__(kThreads)
   const int q_end = min(n1, (blockIdx.x + 1) * qpb);
   for (int q0 = blockIdx.x * qpb; q0 < q_end; q0 += TQ) {
     __syncthreads();  // the mask of the previous pass is no longer read
-    // TQ * C entries of the mask and as many words of sign bits (32 * C /
-    // 32 a query)
+    // TQ * C entries of the mask, then TQ * QW words of sign bits
     for (int e = threadIdx.x; e < TQ * C; e += kThreads) {
       const int n = q0 + e / C;
       uint2 m = make_uint2(0u, 0u);
       float s = 0.f;
-      unsigned bits = 0u;
       if (n < q_end) {
         m = sel[(qb + n) * C + e % C];
         s = share[(qb + n) * C + e % C];
-        bits = hsign[(qb + n) * C + e % C];
       }
       mk[e] = m.x;
       ng[e] = m.y;
       sh[e] = s;
-      sg[e] = bits;
+    }
+    for (int e = threadIdx.x; e < TQ * QW; e += kThreads) {
+      const int n = q0 + e / QW;
+      sg[e] = n < q_end ? hsign[(qb + n) * QW + e % QW] : 0u;
     }
 #pragma unroll
     for (int r = 0; r < QR; ++r)
@@ -457,10 +484,10 @@ __global__ void __launch_bounds__(kThreads)
       const int q = qg * QR + r, n = q0 + q;
       if (n >= q_end) continue;
       const float* col = dh + q * kSlots * C + i;
-      const unsigned* bits = sg + q * C;
+      const unsigned* bits = sg + q * QW;
       float dv = 0.f;
       for (int s = 0; s < k; ++s) {
-        const bool pos = (bits[s * (C / 32) + i / 32] >> (i % 32)) & 1u;
+        const bool pos = (bits[s * HW + i / 32] >> (i % 32)) & 1u;
         // __fmul_rn: a product the compiler may not fuse into dv's sum, so
         // d_v has the same bits whether or not d_u is wanted
         const float g = __fmul_rn(col[s * C], pos ? 1.f : 0.1f);
@@ -529,9 +556,9 @@ cudaError_t launch(const float* u, const int* idx, const float* v,
 }  // namespace
 
 // d_u, d_w and d_bias must hold zeros; sel (2 * B * N1 * C ints), share
-// (B * N1 * C floats) and hsign (B * N1 * C ints) are scratch. d_u, d_v, or
-// d_w with d_bias may be null (not wanted); d_bias needs d_w. With d_u and
-// d_v both null the second kernel does not run.
+// (B * N1 * C floats) and hsign (B * N1 * max(C, 32) ints) are scratch.
+// d_u, d_v, or d_w with d_bias may be null (not wanted); d_bias needs d_w.
+// With d_u and d_v both null the second kernel does not run.
 extern "C" int kdpc_pool_bwd(const float* u, const int* idx, const float* v,
                              const float* w, const float* bias,
                              const float* ct, int b, int n1, int n2, int k,
@@ -544,6 +571,9 @@ extern "C" int kdpc_pool_bwd(const float* u, const int* idx, const float* v,
     return (int)cudaErrorInvalidValue;
   uint2* sel2 = reinterpret_cast<uint2*>(sel);
   switch (c) {
+    case 16:
+      return (int)launch<16>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
+                             d_w, d_bias, sel2, share, hsign, stream);
     case 32:
       return (int)launch<32>(u, idx, v, w, bias, ct, b, n1, n2, k, d_u, d_v,
                              d_w, d_bias, sel2, share, hsign, stream);

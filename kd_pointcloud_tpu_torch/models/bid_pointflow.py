@@ -1,9 +1,10 @@
-"""BidPointFlowNet, teacher wiring.
+"""BidPointFlowNet, the conv-encoder wiring with light cross layers.
 
 Port of kd_pointcloud_tpu/models/bid_pointflow.py for the configurations
-with encoder="conv", cross="light", level_block="conv", iters=1,
-fps_blocks=1, no coarse_warp and no interlevel swap: the teacher and the
-presets that share its architecture. Any other configuration raises.
+with encoder="conv", cross="light", iters=1, fps_blocks=1 and no interlevel
+swap: the teacher and the presets that share its architecture, the
+coarse-warp serving preset (serving_v3) and the bottleneck students
+(student, student2, non_linear). Any other configuration raises.
 
 Topology: a Conv1d-style l0 encoder, then an FPS PointConvD pyramid l1..l4
 over both clouds stacked on the batch axis (shared weights); the decoder
@@ -11,7 +12,10 @@ upsamples l4 -> l3, then per level l3..l0 warps pc2, builds the
 bidirectional cost volume and runs the residual flow head, the cross-refined
 features feeding the next finer level. FPS runs once per pair (levels 2-4
 slice level 1's ordering, nested_fps); one 3-NN search per decoder level
-serves both upsamples.
+serves both upsamples. level_block="bottleneck" swaps the same-width level
+blocks for BottleNeck; nonlinear_downsample swaps l3 and l4's PointConvD
+for PointConvNonLinear; a level in coarse_warp warps pc2 with an inverse
+flow built one level coarser and upsampled along the decoder's 3-NN.
 
 Tensors are channels-last (B, N, C). The output is the JAX package's dict:
 flows (fine -> coarse), fps_idx1/2, pc1/2, feat1s/2s, crosses.
@@ -25,31 +29,38 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import (CrossLayerLight, PointConvD, PointwiseBlock,
+from ..nn import (BottleNeck, CrossLayerLight, PointConvD,
+                  PointConvNonLinear, PointwiseBlock,
                   SceneFlowEstimatorResidual)
 from ..ops import knn_point_dist, point_warp, upsample_idw
 from .config import ModelConfig
 
-_COVERED = dict(encoder="conv", cross="light", level_block="conv", iters=1,
-                fps_blocks=1, nonlinear_downsample=False, coarse_warp=(),
+_COVERED = dict(encoder="conv", cross="light", iters=1, fps_blocks=1,
                 swap_interlevel=False)
+_LEVEL_BLOCKS = ("conv", "bottleneck")
+_COARSE_WARP_LEVELS = (0, 1, 2)
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise on a configuration outside the teacher wiring."""
+    """Raise on a configuration outside the wiring the port covers."""
     wrong = {k: getattr(cfg, k) for k, v in _COVERED.items()
              if getattr(cfg, k) != v}
+    if cfg.level_block not in _LEVEL_BLOCKS:
+        wrong["level_block"] = cfg.level_block
+    if not set(cfg.coarse_warp) <= set(_COARSE_WARP_LEVELS):
+        wrong["coarse_warp"] = cfg.coarse_warp
     if wrong:
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port covers the teacher wiring only "
-            f"({_COVERED}); unsupported here: {wrong}")
+            f"config {cfg.name!r}: the port covers {_COVERED} with "
+            f"level_block in {_LEVEL_BLOCKS} and coarse_warp within "
+            f"{_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
 
 
 class BidPointFlowNet(nn.Module):
     """Coarse-to-fine bidirectional PointConv scene-flow network.
 
     Args:
-      cfg: the configuration (see check_config for what is covered).
+      cfg: the configuration (check_config says what is covered).
       device: where the model lives; "cuda" by default, which raises when
         no card is present. Pass device="cpu" for the plain versions.
       generator: torch.Generator for the torch-default initialisation.
@@ -65,15 +76,13 @@ class BidPointFlowNet(nn.Module):
         C, L, D = cfg.level_channels, cfg.lift_channels, cfg.deconv
 
         self.level0 = PointwiseBlock(3, C[0], g)
-        self.level0_1 = PointwiseBlock(C[0], C[0], g)
+        self.level0_1 = self._level_block(0, C[0], g)
         self.level0_2 = PointwiseBlock(C[0], L[0], g)
         for lvl in range(1, 5):
-            setattr(self, f"level{lvl}", PointConvD(
-                cfg.npoints[lvl], cfg.feat_nei, L[lvl - 1], C[lvl],
-                weightnet=cfg.weightnet[lvl], generator=g))
+            setattr(self, f"level{lvl}", self._downsample(lvl, g))
             if lvl < 4:
                 setattr(self, f"level{lvl}_0",
-                        PointwiseBlock(C[lvl], C[lvl], g))
+                        self._level_block(lvl, C[lvl], g))
                 setattr(self, f"level{lvl}_1",
                         PointwiseBlock(C[lvl], L[lvl], g))
 
@@ -96,6 +105,24 @@ class BidPointFlowNet(nn.Module):
                 feat_in, c, weightnet=cfg.flow_weightnet[lvl], generator=g,
                 **kw))
         self.to(device)
+
+    def _level_block(self, idx: int, width: int, g):
+        """The same-width block after level idx's downsample (after level0
+        at l0): BottleNeck for level_block="bottleneck", else a
+        PointwiseBlock."""
+        if self.cfg.level_block == "bottleneck":
+            return BottleNeck(width, self.cfg.bottleneck_mids[idx], width, g)
+        return PointwiseBlock(width, width, g)
+
+    def _downsample(self, lvl: int, g):
+        """Level lvl's downsampling conv: PointConvNonLinear at l3 and l4
+        with nonlinear_downsample, else PointConvD."""
+        cfg = self.cfg
+        cls = (PointConvNonLinear if cfg.nonlinear_downsample and lvl >= 3
+               else PointConvD)
+        return cls(cfg.npoints[lvl], cfg.feat_nei, cfg.lift_channels[lvl - 1],
+                   cfg.level_channels[lvl], weightnet=cfg.weightnet[lvl],
+                   generator=g)
 
     def _encode(self, pc0, color):
         f0 = self.level0_1(self.level0(color))
@@ -157,7 +184,17 @@ class BidPointFlowNet(nn.Module):
                 knn=(d2_up[:B], idx_up[:B]))
             up_flow, feat_up = both_up[..., :3], both_up[..., 3:]
 
-            pc2_warp = point_warp(pc1[lvl], pc2[lvl], up_flow)
+            if lvl in cfg.coarse_warp:
+                # the inverse flow built at lvl + 1, where the flow lives
+                # before its upsample, and carried to lvl along the pc2
+                # half of the decoder's 3-NN: no lvl-resolution warp search
+                inv_coarse = pc2[lvl + 1] - point_warp(
+                    pc1[lvl + 1], pc2[lvl + 1], cfg.scale * up_flow_src)
+                pc2_warp = pc2[lvl] - upsample_idw(
+                    pc2[lvl], pc2[lvl + 1], inv_coarse,
+                    knn=(d2_up[B:], idx_up[B:]))
+            else:
+                pc2_warp = point_warp(pc1[lvl], pc2[lvl], up_flow)
             f1_new, f2_new, cross_l = getattr(self, f"cross{lvl}")(
                 pc1[lvl], pc2_warp, c_feat1, c_feat2)
             feat_l, flow_l = getattr(self, f"flow{lvl}")(

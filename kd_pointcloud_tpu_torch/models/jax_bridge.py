@@ -5,10 +5,14 @@ nested dicts of numpy arrays (flax's layout, for the whole BidPointFlowNet,
 the Bridge, or any module of either) and returns the state_dict of the
 port's counterpart; the Bridge's flax names (mixed_layer, out_src,
 out_target) are the port's attribute names.
-Flax module names map onto the port's attribute names; Dense kernels (in,
-out) become (out, in) weights, with the PointConv kernel's c-major (C*W)
-input order kept; BatchNorm scale, bias, mean and var become weight, bias,
-running_mean and running_var.
+Flax module names map onto the port's attribute names; every kernel is
+transposed: Dense kernels (in, out) become (out, in) weights, with the
+PointConv kernel's c-major (C*W) input order kept, the BottleNeck's 3-tap
+Conv kernel (3, in, out) becomes torch's conv1d (out, in, 3) and the
+DepthwiseReLU kernel (in, mult) becomes (mult, in); BatchNorm scale, bias,
+mean and var become weight, bias, running_mean and running_var;
+PointConvNonLinear's depthwise (C, 1) and depthwise_bias keep their names
+and shapes.
 """
 
 from __future__ import annotations
@@ -27,9 +31,13 @@ _RULES = (
     (re.compile(r"PointConv_(\d+)"), r"convs/\1"),
     (re.compile(r"BatchNorm_0"), "bn"),
     (re.compile(r"Dense_0"), "dense"),
+    (re.compile(r"Dense_1"), "dense1"),            # BottleNeck's second
+    (re.compile(r"Conv_0"), "conv"),
+    (re.compile(r"DepthwiseReLU_0"), "depthwise"),
 )
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
-           "mean": "running_mean", "var": "running_var"}
+           "mean": "running_mean", "var": "running_var",
+           "depthwise": "depthwise", "depthwise_bias": "depthwise_bias"}
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -57,7 +65,7 @@ def params_from_jax(variables: Mapping) -> dict:
         for path, value in _flatten(variables.get(collection, {})):
             arr = np.asarray(value, dtype=np.float32)
             if path.endswith("kernel"):
-                arr = arr.T
+                arr = arr.T                  # reverses every axis
             state[torch_key(path)] = torch.tensor(arr)
     for key in [k for k in state if k.endswith(".running_mean")]:
         state[key[:-len("running_mean")] + "num_batches_tracked"] = \

@@ -1,7 +1,8 @@
 """Basic building blocks on channels-last (B, N, C) tensors.
 
 Port of kd_pointcloud_tpu/nn/blocks.py: Dense, leaky (ops.leaky, slope 1 at
-0 as jax.nn.leaky_relu), PointwiseBlock, MLP. Weights follow torch's
+0 as jax.nn.leaky_relu), PointwiseBlock, MLP, and the students' level
+block BottleNeck with its DepthwiseReLU branch. Weights follow torch's
 Conv/Linear default init (kaiming_uniform(a=sqrt 5), i.e. U(+-1/sqrt(fan_in))
 for kernel and bias), drawn from an explicit torch.Generator.
 """
@@ -18,19 +19,25 @@ from torch import nn
 from ..ops import leaky
 
 
+def _uniform_(p: torch.Tensor, fan_in: int,
+              generator: torch.Generator | None) -> None:
+    """U(+-1/sqrt(fan_in)) in place: torch's kaiming_uniform(a=sqrt 5)."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound)
+                - bound)
+
+
 class Dense(nn.Module):
     """Linear layer over the trailing axis; weight is (out, in)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator | None = None):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
-        with torch.no_grad():
-            for p in (self.weight, self.bias):
-                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound)
-                        - bound)
+        for p in (self.weight, self.bias):
+            _uniform_(p, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -62,3 +69,62 @@ class MLP(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return x
+
+
+class DepthwiseReLU(nn.Module):
+    """The reference's ConvBNReLU (grouped 1x1 conv, groups = in channels,
+    no bias) + ReLU: input channel c scales into output channels
+    c * mult .. c * mult + mult - 1, mult = out // in. weight is (mult,
+    in), the transpose of flax's (in, mult) kernel."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if out_features % in_features:
+            raise ValueError("grouped conv needs out % in == 0: "
+                             f"{out_features} % {in_features}")
+        self.weight = nn.Parameter(
+            torch.empty(out_features // in_features, in_features))
+        _uniform_(self.weight, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x[..., :, None] * self.weight.t()
+        return torch.relu(y.reshape(*x.shape[:-1], -1))
+
+
+class PointConv1d3(nn.Module):
+    """A 3-tap convolution along the point axis of (B, N, C), zero padding
+    1 (flax nn.Conv, padding SAME), no bias; weight (out, in, 3), torch's
+    conv1d layout. Each batch row is convolved on its own, so clouds
+    stacked on the batch axis never mix."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, 3))
+        _uniform_(self.weight, 3 * in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x.transpose(1, 2), self.weight,
+                        padding=1).transpose(1, 2)
+
+
+class BottleNeck(nn.Module):
+    """Residual bottleneck (the reference's pointconv_util3.py BottleNeck):
+    Dense(mid), the 3-tap point-axis conv, Dense(features), no inner
+    activations, then relu(h + x + DepthwiseReLU(x))."""
+
+    def __init__(self, in_features: int, mid: int, features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if in_features != features:
+            raise ValueError("the identity branch needs in == out: "
+                             f"{in_features} != {features}")
+        self.dense = Dense(in_features, mid, generator)
+        self.conv = PointConv1d3(mid, mid, generator)
+        self.dense1 = Dense(mid, features, generator)
+        self.depthwise = DepthwiseReLU(in_features, features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dense1(self.conv(self.dense(x)))
+        return torch.relu(h + x + self.depthwise(x))

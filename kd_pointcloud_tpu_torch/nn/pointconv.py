@@ -1,9 +1,10 @@
 """PointConv layers: WeightNet-weighted continuous convolutions.
 
 Port of kd_pointcloud_tpu/nn/pointconv.py: group_knn, contract_dense,
-PointConv (same resolution) and PointConvD (FPS downsampling, with the
-nested-FPS prefix). The (C, W) pair is flattened c-major into the Dense
-kernel, as the reference's .view(B, N, -1) does.
+PointConv (same resolution), PointConvD (FPS downsampling, with the
+nested-FPS prefix) and PointConvNonLinear (its depthwise + pointwise
+factorisation, non_linear's l3 and l4). The (C, W) pair is flattened
+c-major into the Dense kernel, as the reference's .view(B, N, -1) does.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops import furthest_point_sample, gather_points, group_points, knn_point
-from .blocks import Dense, leaky
+from .blocks import Dense, _uniform_, leaky
 from .weightnet import WeightNet
 
 
@@ -124,3 +125,36 @@ class PointConvD(nn.Module):
         grouped, rel = group_knn(self.nsample, xyz, new_xyz, feats)
         y = contract_dense(grouped, self.weightnet(rel), self.dense)
         return new_xyz, leaky(y), fps_idx
+
+
+class PointConvNonLinear(nn.Module):
+    """Depthwise + pointwise factorised downsampling conv (the reference's
+    pointconv_util3.py PointConvNonLinear): the (C, W) contraction kept
+    unflattened, a per-channel scale and bias over C = 3 + in_channel, a
+    Dense C -> out_channel / W applied to each W slot, flattened back to
+    out_channel (w-major), then leaky. No BatchNorm. Returns (new_xyz,
+    new_feat, fps_idx) like PointConvD."""
+
+    def __init__(self, npoint: int, nsample: int, in_channel: int,
+                 out_channel: int, weightnet: int = 16,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if out_channel % weightnet:
+            raise ValueError(f"out_channel {out_channel} is not a multiple "
+                             f"of weightnet {weightnet}")
+        c = 3 + in_channel
+        self.npoint = npoint
+        self.nsample = nsample
+        self.weightnet = WeightNet(weightnet, generator=generator)
+        self.depthwise = nn.Parameter(torch.empty(c, 1))
+        _uniform_(self.depthwise, c, generator)
+        self.depthwise_bias = nn.Parameter(torch.zeros(c))
+        self.dense = Dense(c, out_channel // weightnet, generator)
+
+    def forward(self, xyz, feats, prefix_sample: bool = False):
+        new_xyz, fps_idx = fps_or_prefix(xyz, self.npoint, prefix_sample)
+        grouped, rel = group_knn(self.nsample, xyz, new_xyz, feats)
+        y = torch.einsum("bskc,bskw->bscw", grouped, self.weightnet(rel))
+        y = y * self.depthwise + self.depthwise_bias[:, None]
+        y = self.dense(y.transpose(-1, -2))          # (B, S, W, out / W)
+        return new_xyz, leaky(y.flatten(2)), fps_idx

@@ -13,7 +13,9 @@ wrappers in ``ops/`` raise if it is not 0.
 
 ``LAUNCHES`` counts the launches of each kernel. A wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that a path really
-went through the kernels.
+went through the kernels. A kernel built for several channel widths also
+counts each launch under its width in ``WIDTH_LAUNCHES`` (key
+``"<name> C=<width>"``), so a run can show which instances it went through.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0, "fps_pruned": 0,
             "cross_pool": 0}
+WIDTH_LAUNCHES: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
@@ -71,6 +74,7 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    WIDTH_LAUNCHES.clear()
 
 
 def sources() -> list:
@@ -156,14 +160,18 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point ``kdpc_<name>`` on the current stream and count it."""
+def launch(name: str, *args, width: int | None = None) -> None:
+    """Call entry point ``kdpc_<name>`` on the current stream and count it,
+    also under its channel width when one is given."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib(), f"kdpc_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[name] += 1
+    if width is not None:
+        key = f"{name} C={width}"
+        WIDTH_LAUNCHES[key] = WIDTH_LAUNCHES.get(key, 0) + 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from . import kernels
 from .gather import group_points
 
-KERNEL_C = (32, 64, 128, 256)
+KERNEL_C = (16, 32, 64, 128, 256)
 KERNEL_BWD_K = 32     # the backward kernel's neighbour slots a query
 POOL_SLOTS = 32       # the forward kernel's neighbour slots a pass
 POOL_THREADS = 256    # the forward kernel's threads a block
@@ -193,7 +193,7 @@ def _pool_cuda(u, idx, v, weight, bias):
     out = torch.empty(B, N1, C, dtype=torch.float32, device=u.device)
     kernels.launch("pool", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), B, N1, N2, K, C,
-                   out.data_ptr())
+                   out.data_ptr(), width=C)
     return out
 
 
@@ -225,10 +225,11 @@ def _pool_bwd_cuda(u, idx, v, weight, bias, ct, need=(True,) * 4):
     d_b = torch.zeros(C, **f32) if want_wb else None
     # per (query, output channel) the max mask's slot bits, their p < 0
     # bits and the cotangent's share; per (query, slot) the sign bits of
-    # h0's pre-activation, 32 channels a word
+    # h0's pre-activation, 32 channels a word (one word, half used, at
+    # C = 16)
     sel = torch.empty(B, N1, C, 2, **i32)
     share = torch.empty(B, N1, C, **f32)
-    hsign = torch.empty(B, N1, C, **i32)
+    hsign = torch.empty(B, N1, KERNEL_BWD_K * -(-C // 32), **i32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -236,7 +237,8 @@ def _pool_bwd_cuda(u, idx, v, weight, bias, ct, need=(True,) * 4):
     kernels.launch("pool_bwd", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), ct.data_ptr(), B, N1,
                    N2, K, C, ptr(d_u), ptr(d_v), ptr(d_w), ptr(d_b),
-                   sel.data_ptr(), share.data_ptr(), hsign.data_ptr())
+                   sel.data_ptr(), share.data_ptr(), hsign.data_ptr(),
+                   width=C)
     return (d_u, d_v, d_w if need_w else None, d_b if need_b else None)
 
 

@@ -135,6 +135,29 @@ def test_launch_counters_start_and_reset():
                                 "fps_pruned": 0, "cross_pool": 0}
 
 
+def test_launch_counts_by_width(monkeypatch):
+    """launch() counts every launch under the kernel's name and, when the
+    wrapper gives one, under its channel width; reset clears both."""
+    class Lib:
+        @staticmethod
+        def kdpc_pool(*args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(kernels, "lib", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream)
+    kernels.reset_launches()
+    for width in (16, 32, 16):
+        kernels.launch("pool", 0, width=width)
+    kernels.launch("pool", 0)
+    assert kernels.LAUNCHES["pool"] == 4
+    assert kernels.WIDTH_LAUNCHES == {"pool C=16": 2, "pool C=32": 1}
+    kernels.reset_launches()
+    assert kernels.LAUNCHES["pool"] == 0 and kernels.WIDTH_LAUNCHES == {}
+
+
 def test_train_entry_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -179,6 +202,9 @@ def test_chip_smoke_imports_without_a_card():
                                "pool_bwd": 12, **zero}
     for per in (mod.PER_FORWARD, mod.PER_TRAIN_STEP, mod.PER_KD_STEP):
         assert set(per) == set(kernels.LAUNCHES)
+    # a student KD step launches the pool pair at C = 16 at the l0 cross
+    # layer's three pools, forward and backward
+    assert mod.STUDENT_C16 == {"pool C=16": 3, "pool_bwd C=16": 3}
     assert set(mod.KERNEL_META) == set(kernels.LAUNCHES)
     for meta in mod.KERNEL_META.values():
         assert (ROOT / meta["source"]).exists()

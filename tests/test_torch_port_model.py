@@ -167,14 +167,14 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("name", ["teacher", "lighttoken_res", "serving",
-                                  "serving_v2", "weight48"])
+                                  "serving_v2", "weight48", "serving_v3",
+                                  "student", "student2", "non_linear"])
 def test_teacher_wiring_presets_accepted(name):
     check_config(PRESETS[name])
+    BidPointFlowNet(tiny_config(name), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["fg", "bifeat", "no_cross", "vote",
-                                  "non_linear", "student", "student2",
-                                  "serving_v3"])
+@pytest.mark.parametrize("name", ["fg", "bifeat", "no_cross", "vote"])
 def test_uncovered_presets_raise(name):
     with pytest.raises(NotImplementedError):
         BidPointFlowNet(tiny_config(name), device="cpu")

@@ -14,7 +14,8 @@ torch beside the plain versions:
   KD paths;
 - pool backward: pool_bwd_masked (d_h0, d_w, d_bias formed only at the max
   mask's entries) equals autograd of pool_plain and JAX's Pallas backward
-  in interpret mode, with exact ties, at K = 16 and K = 32.
+  in interpret mode, with exact ties, at K = 16 and K = 32, and at C = 16
+  against the lane-packed Pallas backward (packed_p = 8).
 
 Inputs come from numpy seeds; every tolerance is stated where it is used.
 """
@@ -26,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from kd_pointcloud_tpu.ops.gather import group_points_kmajor
+from kd_pointcloud_tpu.ops.gather import (group_points_kmajor,
+                                          group_points_kmajor_packed)
 from kd_pointcloud_tpu.ops.knn import knn_point_dist as jax_knn_dist
 from kd_pointcloud_tpu.ops.pallas import pool_fused as jax_pool
 from kd_pointcloud_tpu_torch.models import PRESETS
@@ -225,6 +227,25 @@ def test_pool_bwd_masked_matches_autograd_and_pallas_interpret(c, k,
         group_points_kmajor(u, idx), jnp.asarray(v), (jnp.asarray(w),),
         (jnp.asarray(b),), 0, 1, jnp.asarray(ct))
     _close(got, [_scatter_dg(d_g, idx, u.shape[1]), d_v, d_w, d_b])
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_pool_bwd_masked_at_c16_matches_pallas_lane_packed(k, monkeypatch):
+    """C = 16, the student's l0 width, with ties: against autograd and the
+    Pallas backward on 8 queries lane-packed to a row (packed_p = 8, as
+    the JAX package runs it), its d_g unpacked to (B, K, N1, 16) before
+    the scatter into d_u."""
+    monkeypatch.setattr(jax_pool.pl, "pallas_call",
+                        functools.partial(jax_pool.pl.pallas_call,
+                                          interpret=True))
+    u, idx, v, w, b, ct = _tie_case(16, k, seed=16 + k)
+    got = _masked(u, idx, v, w, b, ct)
+    _close(got, _autograd(u, idx, v, w, b, ct))
+    d_g, d_v, (d_w,), (d_b,) = jax_pool._pool_bwd_pallas(
+        group_points_kmajor_packed(u, idx, 8), jnp.asarray(v),
+        (jnp.asarray(w),), (jnp.asarray(b),), 0, 8, jnp.asarray(ct))
+    _close(got, [_scatter_dg(jax_pool._unpack(d_g, 8), idx, u.shape[1]), d_v,
+                 d_w, d_b])
 
 
 def test_pool_bwd_masked_splits_a_tie_evenly():

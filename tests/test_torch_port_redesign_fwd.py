@@ -16,8 +16,10 @@ in torch beside the plain versions:
 - pool forward: pool_tiled (passes of queries x 32 slots, K in chunks of
   32, empty slots and queries left out of the max, p summed over the
   kernel's i-tiles) equals pool_plain and JAX's Pallas pool in interpret
-  mode, at every width the kernel takes, ragged K and N1 included; its
-  tiles fit the blocks an SM its launch bounds aim at.
+  mode, at every width the kernel takes (C = 16 also against the Pallas
+  pool on 8 queries lane-packed to a row, as the JAX package runs it),
+  ragged K and N1 included; its tiles fit the blocks an SM its launch
+  bounds aim at.
 
 Inputs come from numpy seeds; every tolerance is stated where it is used.
 """
@@ -31,7 +33,8 @@ import pytest
 import torch
 
 from kd_pointcloud_tpu.ops.fps import _furthest_point_sample_xla
-from kd_pointcloud_tpu.ops.gather import group_points_kmajor
+from kd_pointcloud_tpu.ops.gather import (group_points_kmajor,
+                                          group_points_kmajor_packed)
 from kd_pointcloud_tpu.ops.pallas import pool_fused as jax_pool
 from kd_pointcloud_tpu.ops.pallas.fps_pallas import furthest_point_sample_pallas
 from kd_pointcloud_tpu_torch.models import PRESETS
@@ -157,6 +160,27 @@ def test_pool_tiled_equals_plain_and_pallas_interpret(c, k, monkeypatch):
                                  (jnp.asarray(w),), (jnp.asarray(b),), 0)
     # float32 sums in another order (the i-tiles, cuBLAS / XLA dots): 1e-5
     # of the output's largest magnitude
+    for ref in (pool_plain(*args).numpy(), np.asarray(want)):
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_pool_tiled_at_c16_equals_pallas_lane_packed(k, monkeypatch):
+    """C = 16, the student's l0 width: the JAX package packs 8 queries to a
+    128-lane row (nn/cross.py _pool_gather, group_points_kmajor_packed) and
+    runs the Pallas pool at packed_p = 8; pool_tiled and pool_plain give
+    its output (n1 = 40, a multiple of 8)."""
+    monkeypatch.setattr(jax_pool.pl, "pallas_call",
+                        functools.partial(jax_pool.pl.pallas_call,
+                                          interpret=True))
+    u, idx, v, w, b = _pool_case(16, k, seed=16 + k, n1=40)
+    args = (_t(u), _t(idx), _t(v), _t(w.T), _t(b))
+    got = pool_tiled(*args).numpy()
+    want = jax_pool._pool_pallas(group_points_kmajor_packed(u, idx, 8),
+                                 jnp.asarray(v), (jnp.asarray(w),),
+                                 (jnp.asarray(b),), 0, packed_p=8)
+    # float32 sums in another order: 1e-5 of the largest magnitude
     for ref in (pool_plain(*args).numpy(), np.asarray(want)):
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
