@@ -10,10 +10,13 @@ step at batch 3, through train.make_train_step; knowledge distillation of
 a lighttoken_res student from the frozen teacher at batch 8
 (configs/distill_kd.yaml), through train.make_distill_step; the same into
 the halved-width `student` preset (bottleneck blocks, a C = 16 cost volume
-at l0); and the eval forwards of the student presets (student,
-serving_v3's coarse warp, student2, non_linear) -- and holds each
-hand-written kernel against its plain PyTorch version. Phases, each
-printing flushed lines as it goes:
+at l0); the eval forwards of the student presets (student, serving_v3's
+coarse warp, student2, non_linear); the feature-grouping family's eval
+forwards (bifeat, fg) and the fast KD step bifeat -> fg
+(configs/fast_distill.yaml), through train.make_fast_distill_step; and
+the no_cross and vote eval forwards -- and holds each hand-written kernel
+against its plain PyTorch version. Phases, each printing flushed lines as
+it goes:
 
   1. device: name, count, power limit (nvidia-smi), torch and CUDA versions;
   2. build: one nvcc process a csrc/*.cu source, all at once, and one link;
@@ -45,8 +48,10 @@ printing flushed lines as it goes:
      with float atomics, in an order that changes from run to run), and a
      crafted tie case per width (equal rows of u, repeated neighbours, zero
      pre-activations) that must split the cotangent as the plain version,
-     and a ragged case per width (K = 16, N1 off every tile); d_v asked
-     alone bit-equal to the full call's at both batches;
+     a union case per width (the FG layer's 32 slots, every neighbour
+     twice: slots 16-31 repeat slots 0-15 reversed) and a ragged case per
+     width (K = 16, N1 off every tile); d_v asked alone bit-equal to the
+     full call's at both batches;
   7. the train path: one train step of the teacher (seed 0) through the
      kernels and of its copy through the plain versions, on the same
      batch: loss within 1e-5 relative, every gradient leaf within GRAD_TOL
@@ -91,7 +96,8 @@ printing flushed lines as it goes:
  14. the pool kernels at C = 16, on the three l0 pool sites of a batch-8
      `student` train forward (K = 32, N1 = N2 = 8192) and at K = 9 with N1
      off every query tile: forward within 1e-4 x max|plain|, backward
-     within POOL_BWD_TOL, with the tie and ragged cases at C = 16 and d_v
+     within POOL_BWD_TOL, with the tie, union and ragged cases at C = 16
+     and d_v
      alone bit-equal; ptxas's registers, shared memory and spills of the
      C = 16 template instances;
  15. the student KD path: one distill step of `student` (seed 0) from the
@@ -105,11 +111,31 @@ printing flushed lines as it goes:
      serving_v3's l0 warp search of 8192 x 8192 replaced by one of 2048 x
      2048), flows against the plain versions as in phase 4; student and
      serving_v3 timed as in phase 5;
- 18. one {"kernels": [...]} line (times per KD step for the kernels of
-     the paths, the train step's, the eval forward's and the student KD
-     step's beside them, and the pool's C = 16 sites; the attic kernels
-     at their phase-9 shapes);
- 19. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+ 18. the FG family's eval forwards, bifeat (two refinement iterations at
+     l0-l2) and fg, batch 1, through evaluate_model: launches a forward
+     from the wiring (forward_launches: fps 1, knn 29 / 20, pool 21 / 12),
+     every flow level and iteration against the plain versions as in
+     phase 4, the feature-space kNN's indices (plain PyTorch on both
+     paths) identical between the two runs at each of its 4 sites, FPS and
+     kNN bit-identical to their plain versions at each call site, each
+     kernel and the feature kNN timed at their sites (CUDA events), and
+     the forwards timed as in phase 5;
+ 19. the fast KD path: one step of make_fast_distill_step, frozen bifeat
+     (seed 1) -> fg (seed 0), batch 8, att_iter_loss (gamma 0.6, layers
+     [1, 2]), Adam lr 1e-3, weight decay 1e-4, through the kernels and, on
+     a copy of the student, the plain versions, held as in phase 10
+     (launches fps 2, knn 49, pool 33, pool_bwd 12);
+ 20. fast KD timing as in phase 11, with the feature kNN's ms a step (its
+     8 sites, CUDA events) beside the kernels;
+ 21. the no_cross and vote eval forwards at batch 1 against the plain
+     versions (launches from the wiring: pool 4 and 8; vote's last round
+     is plain PyTorch);
+ 22. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
+     for the kernels of the paths, the train step's, the eval forward's,
+     the student KD step's and the fast KD step's beside them, and the
+     pool's C = 16 sites; the attic kernels at their phase-9 shapes; the
+     feature kNN, plain PyTorch, per fast KD step and FG eval pair);
+ 23. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -155,6 +181,14 @@ STUDENT_LOSS = "biDirectionLoss"
 STUDENT_LOSS_ARGS = dict(gamma=0.3, gamma2=0.3, beta=0.8)
 EVAL_PRESETS = ("student", "serving_v3", "student2", "non_linear")
 TIMED_PRESETS = ("student", "serving_v3")
+# the feature-grouping family: eval forwards, then the fast KD step of
+# configs/fast_distill.yaml (bifeat -> fg, batch 8, att_iter_loss gamma 0.6,
+# layers [1, 2], Adam lr 1e-3, weight decay 1e-4)
+FG_PRESETS = ("bifeat", "fg")
+FAST_TEACHER, FAST_STUDENT = "bifeat", "fg"
+FAST_KD_ARGS = dict(gamma=0.6, layers=(1, 2))
+ABLATION_PRESETS = ("no_cross", "vote")
+FEATURE_REPS = 5
 FPS_PRUNED_BATCHES = (2, 6, 16)    # stacked clouds: eval, train, KD forward
 ATTIC_TOL = 1e-4                   # x max|plain|: float32 sums, other order
 # the backward kernel adds d_u, d_weight and d_bias with float atomics, in
@@ -385,6 +419,33 @@ def tie_case(u, idx, v, weight, bias, ct):
     return u, idx, v, weight, bias, ct
 
 
+def union_case(u, idx, v, weight, bias, ct):
+    """Pool inputs shaped like the FG layer's union of two neighbour
+    halves: slots 16-31 repeat slots 0-15 in reverse, so every neighbour
+    is in two slots of its query, an exact tie of two slots everywhere."""
+    idx = idx.clone()
+    idx[:, :, 16:32] = idx[:, :, :16].flip(-1)
+    return u, idx, v, weight, bias, ct
+
+
+def forward_launches(cfg) -> dict:
+    """Kernel launches of one forward of cfg, from its wiring. FPS once
+    (l1; l2-l4 slice its ordering). kNN: the encoder's groupings (l1-l4,
+    and l0's PointConv with encoder="pointconv"), the l4 -> l3 and three
+    decoder 3-NN, and per cross-layer call (l3 once, l2-l0 iters times)
+    its 3-D search (both directions stacked; the FG layer's Euclidean
+    half; no_cross's one direction) and the flow head's self-kNN, and per
+    l2-l0 call one warp search (a coarse warp searches one level up
+    instead). Pool: 3 a cross-layer call, 2 for vote (its last round is
+    plain), 1 for no_cross."""
+    calls = 1 + 3 * cfg.iters
+    encoder = 4 + (cfg.encoder == "pointconv")
+    pools = {"light": 3, "fg": 3, "vote": 2, "nocross": 1}[cfg.cross]
+    return {"fps": 1, "knn": encoder + 4 + 2 * calls + 3 * cfg.iters,
+            "pool": pools * calls, "pool_bwd": 0, "fps_pruned": 0,
+            "cross_pool": 0}
+
+
 def ragged_case(u, idx, v, weight, bias, ct):
     """Pool inputs off the path's grid: K = 16 neighbours (slots left
     empty in the backward kernel) and N1 not a multiple of any query
@@ -465,6 +526,7 @@ def main() -> int:
                                               synthetic_pairs)
     from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                                 Bridge)
+    from kd_pointcloud_tpu_torch.nn import cross as cross_nn
     from kd_pointcloud_tpu_torch.ops import fps as fps_mod
     from kd_pointcloud_tpu_torch.ops import kernels
     from kd_pointcloud_tpu_torch.ops.kernel_ab import fps_skeleton
@@ -475,6 +537,7 @@ def main() -> int:
                                                make_bridge_distill_step,
                                                make_distill_step,
                                                make_eval_step,
+                                               make_fast_distill_step,
                                                make_named_loss,
                                                make_optimizer,
                                                make_train_step,
@@ -494,7 +557,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/19 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/23 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -504,7 +567,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/19 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/23 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -549,7 +612,37 @@ def main() -> int:
             return run
         return make
 
+    @contextlib.contextmanager
+    def feature_recorder(store):
+        """Record every feature-space kNN of the FG cross layers (plain
+        PyTorch on both paths): (k, keys, queries, indices)."""
+        entry = cross_nn.knn_features
+
+        def run(k, keys, query):
+            idx = entry(k, keys, query)
+            store.append((k, keys.detach().clone(), query.detach().clone(),
+                          idx))
+            return idx
+        cross_nn.knn_features = run
+        try:
+            yield
+        finally:
+            cross_nn.knn_features = entry
+
+    def feature_ms(sites) -> float:
+        """ms of the feature kNN summed over its sites (CUDA events)."""
+        with torch.inference_mode():
+            return sum(cuda_ms(lambda: knn_mod.knn_features(k, keys, q),
+                               FEATURE_REPS, 1) for k, keys, q, _ in sites)
+
+    def feature_site(args) -> str:
+        k, keys, q = args[:3]
+        return (f"k={k} B={q.shape[0]} {q.shape[1]}x{keys.shape[1]} "
+                f"D={keys.shape[2]}")
+
     calls = {n: [] for n in points}
+    check(forward_launches(PRESETS["teacher"]) == PER_FORWARD,
+          "forward_launches disagrees with the teacher's launches")
     model = BidPointFlowNet(PRESETS["teacher"], device="cuda",
                             generator=torch.Generator().manual_seed(SEED))
     model.eval()
@@ -564,7 +657,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/19 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/23 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -676,31 +769,52 @@ def main() -> int:
         check(part[0] is None and part[2] is None and part[3] is None
               and torch.equal(part[1], full[1]), "pool_bwd with d_v alone")
 
-    def hold_flows(model_, label="") -> None:
+    def hold_flows(model_, label="") -> list:
         """Eval flows through the kernels against the same model on the
-        plain versions: max abs <= 1e-3, median <= 1e-5; FPS chains
-        equal."""
+        plain versions, every level and iteration: max abs <= 1e-3, median
+        <= 1e-5; FPS chains equal; the feature-space kNN's indices equal
+        at each of its sites. Returns the kernel run's feature kNN
+        sites."""
+        f_k, f_p = [], []
         with torch.inference_mode():
-            out_k = model_(*dev_pairs[0][:4])
-            with swapped(lambda n, entry, plain: plain):
+            with feature_recorder(f_k):
+                out_k = model_(*dev_pairs[0][:4])
+            with swapped(lambda n, entry, plain: plain), \
+                    feature_recorder(f_p):
                 out_p = model_(*dev_pairs[0][:4])
+        iters = model_.cfg.iters
         for lvl in range(4):
-            fk, fp = out_k["flows"][lvl], out_p["flows"][lvl]
+            fks, fps_ = out_k["flows"][lvl], out_p["flows"][lvl]
+            if iters > 1 and lvl < 3:
+                check(len(fks) == len(fps_) == iters,
+                      f"{label}flow{lvl}: {len(fks)} iterations")
+            else:
+                fks, fps_ = [fks], [fps_]
             n_lvl = model_.cfg.npoints[lvl]
-            check(tuple(fk.shape) == (1, n_lvl, 3),
-                  f"{label}flow{lvl} {fk.shape}")
-            check(bool(torch.isfinite(fk).all()),
-                  f"{label}flow{lvl} not finite")
-            diff = (fk - fp).abs()
-            mx, med = float(diff.max()), float(diff.median())
-            log(f"  {label}flow{lvl} {tuple(fk.shape)}: kernels vs plain "
-                f"versions max abs {mx:.3g}, median {med:.3g}")
-            check(mx <= 1e-3 and med <= 1e-5,
-                  f"{label}flow{lvl}: {mx}, {med}")
+            for it, (fk, fp) in enumerate(zip(fks, fps_)):
+                name = f"{label}flow{lvl}" + (f" iteration {it}"
+                                              if len(fks) > 1 else "")
+                check(tuple(fk.shape) == (1, n_lvl, 3),
+                      f"{name} {fk.shape}")
+                check(bool(torch.isfinite(fk).all()), f"{name} not finite")
+                diff = (fk - fp).abs()
+                mx, med = float(diff.max()), float(diff.median())
+                log(f"  {name} {tuple(fk.shape)}: kernels vs plain "
+                    f"versions max abs {mx:.3g}, median {med:.3g}")
+                check(mx <= 1e-3 and med <= 1e-5, f"{name}: {mx}, {med}")
         for key in ("fps_idx1", "fps_idx2"):
             check(all(torch.equal(a_, b_)
                       for a_, b_ in zip(out_k[key], out_p[key])),
                   f"{label}{key} differs from the plain versions'")
+        check(len(f_k) == len(f_p) and all(
+            torch.equal(a_[3], b_[3]) for a_, b_ in zip(f_k, f_p)),
+              f"{label}feature kNN indices differ between the kernel and "
+              f"the plain run")
+        if f_k:
+            log(f"  {label}feature kNN: indices identical between the "
+                f"kernel and the plain run at its {len(f_k)} sites ("
+                + ", ".join(feature_site(a_) for a_ in f_k) + ")")
+        return f_k
 
     def time_forward(fwd, what="forward") -> None:
         """fwd over the timed pairs after a warm-up: ms a pair, pairs/s,
@@ -763,7 +877,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/19 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/23 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -816,7 +930,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/19 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/23 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -863,7 +977,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/19 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/23 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -872,6 +986,7 @@ def main() -> int:
         widths.setdefault(args[0].shape[2], args)
     cases = ([("", a) for a in bwd_sites + kd_bwd_sites]
              + [("tie case ", tie_case(*a)) for a in widths.values()]
+             + [("union case ", union_case(*a)) for a in widths.values()]
              + [("ragged case ", ragged_case(*a)) for a in widths.values()])
     worst_ratio = hold_pool_bwd(cases)
     results["pool_bwd"]["match"] = f"max err / max|plain| {worst_ratio:.3g}"
@@ -889,7 +1004,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/19 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/23 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -969,7 +1084,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/19 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/23 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -985,7 +1100,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/19 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/23 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1084,7 +1199,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/19 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/23 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1116,7 +1231,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/19 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/23 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1152,7 +1267,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/19 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/23 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1194,7 +1309,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/19 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/23 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1221,7 +1336,7 @@ def main() -> int:
     c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
     check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
           f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
-    log(f"[14/19 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+    log(f"[14/23 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
     for line in ptxas_summary(info["log"]):
@@ -1234,12 +1349,13 @@ def main() -> int:
                                    generator=gen)) for args in c16]
     worst_ratio = hold_pool_bwd([("", a_) for a_ in c16_bwd]
                                 + [("tie case ", tie_case(*c16_bwd[0])),
+                                   ("union case ", union_case(*c16_bwd[0])),
                                    ("ragged case ",
                                     ragged_case(*c16_bwd[0]))])
     dv_alone(c16_bwd[0])
     log("  pool_bwd at C = 16 asked for d_v alone: equal to the full call's")
-    results["pool_bwd"]["match"] += (f"; C = 16 (student l0, ties, ragged) "
-                                     f"{worst_ratio:.3g}")
+    results["pool_bwd"]["match"] += (f"; C = 16 (student l0, ties, union, "
+                                     f"ragged) {worst_ratio:.3g}")
     del c16_bwd, c16, s_fwd_calls
     deadline("pool at C = 16")
 
@@ -1255,7 +1371,7 @@ def main() -> int:
     loss_k = float(s_step(kd_batch))
     s_launches = dict(kernels.LAUNCHES)
     s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
-    log(f"[15/19 student KD path] one distill step, teacher -> student, "
+    log(f"[15/23 student KD path] one distill step, teacher -> student, "
         f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
         f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
     check(s_launches == PER_KD_STEP,
@@ -1293,7 +1409,7 @@ def main() -> int:
     deadline("student KD path")
 
     # ---------------------------------------------------------------- 16
-    time_steps(s_step, kd_batch, "16/19 student KD timing", "KD step",
+    time_steps(s_step, kd_batch, "16/23 student KD timing", "KD step",
                KD_BATCH)
     s_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(s_model).train()
@@ -1332,7 +1448,7 @@ def main() -> int:
     deadline("student KD timing")
 
     # ---------------------------------------------------------------- 17
-    log(f"[17/19 student presets' eval forwards] batch 1, {N_POINTS} "
+    log(f"[17/23 student presets' eval forwards] batch 1, {N_POINTS} "
         f"points, through evaluate_model, each against its plain versions; "
         f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
     teacher_knn = sorted(site("knn", args) for args in calls["knn"])
@@ -1379,7 +1495,177 @@ def main() -> int:
         del pmodel
         deadline(f"{name} eval forward")
 
-    # ---------------------------------------------------------------- 14, 15
+    # ---------------------------------------------------------------- 18
+    log(f"[18/23 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
+        f"{N_POINTS} points, through evaluate_model, each against its plain "
+        f"versions and timed over {N_TIMED_PAIRS} pairs")
+    fg_eval = {}
+    for name in FG_PRESETS:
+        fmodel = BidPointFlowNet(
+            PRESETS[name], device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        kernels.reset_launches()
+        metrics = evaluate_model(fmodel, pairs[:1])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = forward_launches(PRESETS[name])
+        check(launches == want,
+              f"{name}: launches {launches}, expected {want}")
+        check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
+              f"{name}: metrics not finite: {metrics}")
+        log(f"  {name}: launches a forward {launches} (from the wiring: "
+            f"iters {PRESETS[name].iters}, cross {PRESETS[name].cross}, "
+            f"encoder {PRESETS[name].encoder}); metrics (random weights) "
+            + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+        f_sites = hold_flows(fmodel, f"{name} ")
+        check(len(f_sites) == 4, f"{name}: {len(f_sites)} feature kNN "
+              "sites, expected 4 (once a level)")
+        p_calls = {n: [] for n in points}
+        with swapped(recorder(p_calls)), torch.inference_mode():
+            fmodel(*dev_pairs[0][:4])
+        for args in p_calls["fps"]:
+            fps_identical(args)
+        for args in p_calls["knn"]:
+            knn_identical(args)
+        with torch.inference_mode():
+            times = {n: time_sites(n, p_calls[n]) for n in points}
+        for n, t in times.items():
+            log(f"  {name}: {n} per forward {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+        f_ms = feature_ms(f_sites)
+        log(f"  {name}: feature kNN {f_ms:.4f} ms a pair over its "
+            f"{len(f_sites)} sites (CUDA events, {FEATURE_REPS} launches "
+            "after warm-up)")
+        time_forward(make_eval_forward(fmodel), f"{name} forward")
+        fg_eval[name] = dict(launches=launches, times=times,
+                             feature_knn_ms=f_ms,
+                             feature_sites=[feature_site(a_)
+                                            for a_ in f_sites])
+        del fmodel, f_sites, p_calls
+        deadline(f"{name} eval forward")
+
+    # ---------------------------------------------------------------- 19
+    del teacher
+    f_teacher = BidPointFlowNet(
+        PRESETS[FAST_TEACHER], device="cuda",
+        generator=torch.Generator().manual_seed(TEACHER_SEED))
+    f_student = BidPointFlowNet(
+        PRESETS[FAST_STUDENT], device="cuda",
+        generator=torch.Generator().manual_seed(STUDENT_SEED))
+    f_plain = copy.deepcopy(f_student)
+    ft_state = {k: v.clone() for k, v in f_teacher.state_dict().items()}
+    f_opt = make_optimizer(f_student, 1e-3, 1e-4)
+    f_step = make_fast_distill_step(f_teacher, f_student, f_opt,
+                                    **FAST_KD_ARGS)
+    f_step_p = make_fast_distill_step(f_teacher, f_plain,
+                                      make_optimizer(f_plain, 1e-3, 1e-4),
+                                      **FAST_KD_ARGS)
+    t_fwd = forward_launches(PRESETS[FAST_TEACHER])
+    s_fwd = forward_launches(PRESETS[FAST_STUDENT])
+    per_fast = {n: t_fwd[n] + s_fwd[n] for n in t_fwd}
+    per_fast["pool_bwd"] = s_fwd["pool"]
+    kernels.reset_launches()
+    loss_k = float(f_step(kd_batch))
+    f_launches = dict(kernels.LAUNCHES)
+    log(f"[19/23 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
+        f"-> {FAST_STUDENT}, batch {KD_BATCH}, {N_POINTS} points, "
+        f"att_iter_loss {FAST_KD_ARGS}: launches {f_launches}")
+    check(f_launches == per_fast,
+          f"launches {f_launches}, expected {per_fast}")
+    with swapped(lambda n, entry, plain: plain):
+        loss_p = float(f_step_p(kd_batch))
+    check(kernels.LAUNCHES == f_launches,
+          "the plain fast KD step launched a kernel")
+    log(f"  loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "fast KD loss differs")
+    worst, leaf, median, n_leaves, zero_leaves, top = compare_grads(
+        f_student, f_plain)
+    log(f"  student gradients: {n_leaves} leaves, error / max|plain| worst "
+        f"{worst:.3g} ({leaf}), median {median:.3g} (bound {GRAD_TOL}); "
+        f"{zero_leaves} zero-gradient leaves below 1e-5 of the largest "
+        f"gradient {top:.3g}")
+    bn_err = compare_stats(f_student, f_plain)
+    log(f"  student BatchNorm statistics: error / max|plain| {bn_err:.3g}")
+    check(bn_err <= 1e-5, f"BatchNorm statistics differ: {bn_err}")
+    t_same = all(torch.equal(v, ft_state[k])
+                 for k, v in f_teacher.state_dict().items())
+    log(f"  teacher ({FAST_TEACHER}): parameters and statistics "
+        f"bit-unchanged {t_same}, eval mode {not f_teacher.training}")
+    check(t_same and not f_teacher.training
+          and all(p.grad is None for p in f_teacher.parameters()),
+          "the teacher moved")
+    del f_plain, f_step_p
+    deadline("fast KD path")
+
+    # ---------------------------------------------------------------- 20
+    time_steps(f_step, kd_batch, "20/23 fast KD timing", "fast KD step",
+               KD_BATCH)
+    f_calls, f_feat = {n: [] for n in points}, []
+    rec_student = copy.deepcopy(f_student).train()
+    with swapped(recorder(f_calls)), feature_recorder(f_feat), \
+            torch.no_grad():
+        apply_frozen(f_teacher, kd_batch)
+        rec_student(kd_batch["pos1"], kd_batch["pos2"], kd_batch["norm1"],
+                    kd_batch["norm2"])
+    del rec_student
+    got = {n: len(c) for n, c in f_calls.items()}
+    check(got == {n: per_fast[n] for n in points},
+          f"call sites per fast KD step {got}")
+    f_sites = dict(f_calls, pool_bwd=[
+        (*args, torch.randn(args[2].shape, device="cuda", generator=gen))
+        for args in f_calls["pool"][t_fwd["pool"]:]])
+    f_times = time_path(f_sites, "fast KD step")
+    ff_ms = feature_ms(f_feat)
+    log(f"  feature kNN (plain PyTorch: the expansion's matrix product and "
+        f"a topk of k + 1, tied rows sorted) per fast KD step: {ff_ms:.4f} "
+        f"ms over {len(f_feat)} sites ("
+        + ", ".join(feature_site(a_) for a_ in f_feat) + ")")
+    # the selection rule against a stable sort of every row, on the first
+    # 2048-query chunk of the largest site
+    k, keys, q, _ = max(f_feat, key=lambda a_: a_[2].shape[1])
+    with torch.inference_mode():
+        d = knn_mod.feature_distance(q[:, :2048], keys)
+        pick_ms = cuda_ms(lambda: knn_mod.smallest_k(d, k), FEATURE_REPS, 1)
+        sort_ms = cuda_ms(lambda: torch.sort(d, dim=-1, stable=True)[1][
+            ..., :k].int(), FEATURE_REPS, 1)
+        dist_ms = cuda_ms(lambda: knn_mod.feature_distance(q[:, :2048], keys),
+                          FEATURE_REPS, 1)
+        same = torch.equal(knn_mod.smallest_k(d, k), torch.sort(
+            d, dim=-1, stable=True)[1][..., :k].int())
+    del d
+    log(f"  feature kNN, one chunk of {feature_site((k, keys, q[:, :2048]))}: "
+        f"distances {dist_ms:.4f} ms, selection (topk of k + 1, ties "
+        f"sorted) {pick_ms:.4f} ms, a stable sort of every row instead "
+        f"{sort_ms:.4f} ms; indices equal {same}")
+    check(same, "the feature kNN's selection differs from a stable sort")
+    fast_feature = dict(ms=ff_ms, sites=[feature_site(a_) for a_ in f_feat],
+                        chunk=dict(distance_ms=dist_ms, select_ms=pick_ms,
+                                   stable_sort_ms=sort_ms))
+    del f_sites, f_calls, f_feat, f_step, f_opt, f_student, f_teacher
+    deadline("fast KD timing")
+
+    # ---------------------------------------------------------------- 21
+    log(f"[21/23 no_cross and vote eval forwards] batch 1, {N_POINTS} "
+        "points, through evaluate_model, each against its plain versions")
+    for name in ABLATION_PRESETS:
+        amodel = BidPointFlowNet(
+            PRESETS[name], device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        kernels.reset_launches()
+        metrics = evaluate_model(amodel, pairs[:1])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = forward_launches(PRESETS[name])
+        check(launches == want,
+              f"{name}: launches {launches}, expected {want}")
+        check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
+              f"{name}: metrics not finite: {metrics}")
+        log(f"  {name}: launches a forward {launches}")
+        hold_flows(amodel, f"{name} ")
+        del amodel
+        deadline(f"{name} eval forward")
+
+    # ---------------------------------------------------------------- 22
     def timing(t, launches):
         row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
@@ -1398,6 +1684,11 @@ def main() -> int:
             per=f"KD step, batch {KD_BATCH}, {N_POINTS} points",
             train_step=timing(train_times[name], train_launches[name]),
             student_kd_step=timing(s_times[name], s_launches[name]),
+            fast_kd_step=timing(f_times[name], f_launches[name]),
+            fg_eval_forward={
+                n: timing(v["times"][name], v["launches"][name])
+                if name in v["times"] else None
+                for n, v in fg_eval.items()},
             **({"c16_sites": c16_times[name]} if name in c16_times else {}),
             eval_forward=None if e is None else timing(
                 e, eval_launches[name] // N_METRIC_PAIRS)))
@@ -1419,9 +1710,17 @@ def main() -> int:
         per=f"L=1 at the {len(cp_sites)} pool sites of an eval forward; on "
             "no path",
         two_layers=timing(cp2_times, 0)))
-    log("[18/19 kernels]")
-    log(json.dumps({"kernels": kernel_rows}))
-    log(f"[19/19 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    plain_ops = [dict(
+        name="knn_features", route="torch",
+        source="kd_pointcloud_tpu_torch/ops/knn.py",
+        replaces="kd_pointcloud_tpu/ops/knn.py:142 knn_point_dist (XLA, no Pallas kernel)",
+        fast_kd_step=fast_feature,
+        eval_forward={n: dict(ms=v["feature_knn_ms"],
+                              sites=v["feature_sites"])
+                      for n, v in fg_eval.items()})]
+    log("[22/23 kernels]")
+    log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
+    log(f"[23/23 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,6 +23,13 @@ from .metrics import evaluate_3d_torch
 METRIC_KEYS = ("epe3d", "acc3ds", "acc3dr", "outliers", "loss")
 
 
+def flow0_of(out) -> torch.Tensor:
+    """The model's finest flow: the last iteration's where l0 holds a
+    per-iteration list (iters > 1)."""
+    flow0 = out["flows"][0]
+    return flow0[-1] if isinstance(flow0, (list, tuple)) else flow0
+
+
 def make_eval_forward(model):
     """fn(pos1, pos2, norm1, norm2) -> flow0 (B, N, 3): the eval forward,
     without autograd, with the model in eval mode (BatchNorm from running
@@ -32,7 +39,7 @@ def make_eval_forward(model):
 
     def fwd(pos1, pos2, norm1, norm2):
         with torch.inference_mode():
-            return model(pos1, pos2, norm1, norm2)["flows"][0]
+            return flow0_of(model(pos1, pos2, norm1, norm2))
 
     return fwd
 
@@ -49,7 +56,7 @@ def make_eval_metrics_step(model):
             out = model(pos1, pos2, norm1, norm2)
             loss = multi_scale_loss_per_sample(out["flows"], flow,
                                                out["fps_idx1"])
-            return torch.stack([*evaluate_3d_torch(out["flows"][0], flow),
+            return torch.stack([*evaluate_3d_torch(flow0_of(out), flow),
                                 loss], dim=-1)
 
     return step

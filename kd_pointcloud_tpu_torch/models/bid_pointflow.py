@@ -1,24 +1,34 @@
-"""BidPointFlowNet, the conv-encoder wiring with light cross layers.
+"""BidPointFlowNet, the whole model family of the JAX package.
 
-Port of kd_pointcloud_tpu/models/bid_pointflow.py for the configurations
-with encoder="conv", cross="light", iters=1, fps_blocks=1 and no interlevel
-swap: the teacher and the presets that share its architecture, the
-coarse-warp serving preset (serving_v3) and the bottleneck students
-(student, student2, non_linear). Any other configuration raises.
+Port of kd_pointcloud_tpu/models/bid_pointflow.py for every preset: the
+conv encoder with light cross layers (the teacher and the presets sharing
+its architecture, serving_v3's coarse warp, the bottleneck students
+student, student2 and non_linear), the feature-grouping family (fg, and
+bifeat with two refinement iterations a level), no_cross and vote. Only
+fps_blocks > 1 (the blocked-FPS serving relaxation) raises.
 
-Topology: a Conv1d-style l0 encoder, then an FPS PointConvD pyramid l1..l4
-over both clouds stacked on the batch axis (shared weights); the decoder
-upsamples l4 -> l3, then per level l3..l0 warps pc2, builds the
-bidirectional cost volume and runs the residual flow head, the cross-refined
-features feeding the next finer level. FPS runs once per pair (levels 2-4
-slice level 1's ordering, nested_fps); one 3-NN search per decoder level
-serves both upsamples. level_block="bottleneck" swaps the same-width level
-blocks for BottleNeck; nonlinear_downsample swaps l3 and l4's PointConvD
-for PointConvNonLinear; a level in coarse_warp warps pc2 with an inverse
-flow built one level coarser and upsampled along the decoder's 3-NN.
+Topology: an l0 encoder (Conv1d-style blocks, or for encoder="pointconv" a
+lift then a same-resolution PointConv), then an FPS PointConvD pyramid
+l1..l4 over both clouds stacked on the batch axis (shared weights); the
+decoder upsamples l4 -> l3, then per level l3..l0 warps pc2, builds the
+cost volume and runs the residual flow head, the cross-refined features
+feeding the next finer level. FPS runs once per pair (levels 2-4 slice
+level 1's ordering, nested_fps); one 3-NN search per decoder level serves
+both upsamples. level_block="bottleneck" swaps the same-width level blocks
+for BottleNeck; nonlinear_downsample swaps l3 and l4's PointConvD for
+PointConvNonLinear; a level in coarse_warp warps pc2 (in its first
+iteration) with an inverse flow built one level coarser and upsampled
+along the decoder's 3-NN. With iters > 1, levels l2..l0 refine: each
+iteration warps with the last flow and feeds the cross layer the base
+features beside the last cross output (c_feat*). cross="fg" adds the
+base features' feature-space neighbours (computed once a level);
+swap_interlevel feeds each cloud the other's upsampled features.
 
 Tensors are channels-last (B, N, C). The output is the JAX package's dict:
-flows (fine -> coarse), fps_idx1/2, pc1/2, feat1s/2s, crosses.
+flows (fine -> coarse; at iters > 1 the l0-l2 entries are per-iteration
+lists), fps_idx1/2, pc1/2, feat1s/2s (8 entries with feat_l4 at index 4
+for encoder="pointconv"), crosses, and for encoder="pointconv" c_feat1s/2s
+(the cross layers' inputs at l0-l2, per-iteration lists at iters > 1).
 """
 
 from __future__ import annotations
@@ -29,31 +39,38 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import (BottleNeck, CrossLayerLight, PointConvD,
-                  PointConvNonLinear, PointwiseBlock,
+from ..nn import (BottleNeck, CrossLayerLight, CrossLayerLightFG,
+                  CrossLayerLightVote, NoCrossLayerLight, PointConv,
+                  PointConvD, PointConvNonLinear, PointwiseBlock,
                   SceneFlowEstimatorResidual)
 from ..ops import knn_point_dist, point_warp, upsample_idw
 from .config import ModelConfig
 
-_COVERED = dict(encoder="conv", cross="light", iters=1, fps_blocks=1,
-                swap_interlevel=False)
+_ENCODERS = ("conv", "pointconv")
+_CROSSES = ("light", "fg", "nocross", "vote")
 _LEVEL_BLOCKS = ("conv", "bottleneck")
+_FPS_BLOCKS = (1,)
 _COARSE_WARP_LEVELS = (0, 1, 2)
 
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise on a configuration outside the wiring the port covers."""
-    wrong = {k: getattr(cfg, k) for k, v in _COVERED.items()
-             if getattr(cfg, k) != v}
-    if cfg.level_block not in _LEVEL_BLOCKS:
-        wrong["level_block"] = cfg.level_block
+    wrong = {}
+    for field, allowed in (("encoder", _ENCODERS), ("cross", _CROSSES),
+                           ("level_block", _LEVEL_BLOCKS),
+                           ("fps_blocks", _FPS_BLOCKS)):
+        if getattr(cfg, field) not in allowed:
+            wrong[field] = getattr(cfg, field)
+    if cfg.iters < 1:
+        wrong["iters"] = cfg.iters
     if not set(cfg.coarse_warp) <= set(_COARSE_WARP_LEVELS):
         wrong["coarse_warp"] = cfg.coarse_warp
     if wrong:
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port covers {_COVERED} with "
-            f"level_block in {_LEVEL_BLOCKS} and coarse_warp within "
-            f"{_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
+            f"config {cfg.name!r}: the port covers encoder in {_ENCODERS}, "
+            f"cross in {_CROSSES}, level_block in {_LEVEL_BLOCKS}, "
+            f"fps_blocks in {_FPS_BLOCKS}, iters >= 1 and coarse_warp "
+            f"within {_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
 
 
 class BidPointFlowNet(nn.Module):
@@ -75,9 +92,15 @@ class BidPointFlowNet(nn.Module):
         g = generator
         C, L, D = cfg.level_channels, cfg.lift_channels, cfg.deconv
 
-        self.level0 = PointwiseBlock(3, C[0], g)
-        self.level0_1 = self._level_block(0, C[0], g)
-        self.level0_2 = PointwiseBlock(C[0], L[0], g)
+        if cfg.encoder == "conv":
+            self.level0 = PointwiseBlock(3, C[0], g)
+            self.level0_1 = self._level_block(0, C[0], g)
+            self.level0_2 = PointwiseBlock(C[0], L[0], g)
+        else:   # the FG family: lift, same-resolution PointConv, lift
+            self.level0_lift = PointwiseBlock(3, C[0], g)
+            self.level0 = PointConv(cfg.feat_nei, C[0], C[0],
+                                    weightnet=cfg.weightnet[0], generator=g)
+            self.level0_1 = PointwiseBlock(C[0], L[0], g)
         for lvl in range(1, 5):
             setattr(self, f"level{lvl}", self._downsample(lvl, g))
             if lvl < 4:
@@ -96,14 +119,19 @@ class BidPointFlowNet(nn.Module):
             nei = (cfg.flow_nei_per_level[lvl]
                    if cfg.flow_nei_per_level is not None else cfg.flow_nei)
             c = C[lvl]
-            setattr(self, f"cross{lvl}", CrossLayerLight(
-                nei, c + D[3 - lvl], (c, c), (c, c), generator=g))
+            cross_cls, cost = {"light": (CrossLayerLight, c),
+                               "fg": (CrossLayerLightFG, c),
+                               "vote": (CrossLayerLightVote, c + 3),
+                               "nocross": (NoCrossLayerLight, c)}[cfg.cross]
+            mlps = ((c, c),) if cfg.cross == "nocross" else ((c, c), (c, c))
+            setattr(self, f"cross{lvl}", cross_cls(
+                nei, c + D[3 - lvl], *mlps, generator=g))
             feat_in = c if lvl == 3 else c + head_mlp[-1]
             kw = (dict(channels=cfg.flow0_channels, mlp=cfg.flow0_mlp)
                   if lvl == 0 else dict(mlp=head_mlp))
             setattr(self, f"flow{lvl}", SceneFlowEstimatorResidual(
-                feat_in, c, weightnet=cfg.flow_weightnet[lvl], generator=g,
-                **kw))
+                feat_in, cost, weightnet=cfg.flow_weightnet[lvl],
+                generator=g, **kw))
         self.to(device)
 
     def _level_block(self, idx: int, width: int, g):
@@ -125,8 +153,12 @@ class BidPointFlowNet(nn.Module):
                    generator=g)
 
     def _encode(self, pc0, color):
-        f0 = self.level0_1(self.level0(color))
-        lift = self.level0_2(f0)
+        if self.cfg.encoder == "conv":
+            f0 = self.level0_1(self.level0(color))
+            lift = self.level0_2(f0)
+        else:
+            f0 = self.level0(pc0, self.level0_lift(color))
+            lift = self.level0_1(f0)
         pcs, feats, lifts, idxs = [pc0], [f0], [lift], []
         pc = pc0
         for lvl in range(1, 5):
@@ -140,6 +172,34 @@ class BidPointFlowNet(nn.Module):
                 idxs.append(idx)
             feats.append(f)
         return dict(pc=pcs, feat=feats, lift=lifts, idx=idxs)
+
+    def _cross(self, lvl, e1, e2, pc2_lvl, c_feat1, c_feat2, feat_idx):
+        """Level lvl's cross layer -> (f1_new, f2_new, cost volume);
+        no_cross's one-tensor layer passes the base features on."""
+        layer = getattr(self, f"cross{lvl}")
+        args = (e1["pc"][lvl], pc2_lvl, c_feat1, c_feat2)
+        if self.cfg.cross == "nocross":
+            return e1["feat"][lvl], e2["feat"][lvl], layer(*args)
+        if self.cfg.cross == "fg":
+            return layer(*args, e1["feat"][lvl], e2["feat"][lvl],
+                         feat_idx=feat_idx)
+        return layer(*args)
+
+    def _feature_knn(self, lvl, e1, e2):
+        """The FG layer's feature half of level lvl, once for all its
+        iterations (it reads the base features only); None otherwise."""
+        if self.cfg.cross != "fg":
+            return None
+        return getattr(self, f"cross{lvl}").feature_knn(e1["feat"][lvl],
+                                                        e2["feat"][lvl])
+
+    def _c_feats(self, e1, e2, lvl, i1, i2):
+        """The cross layer's inputs: base features beside the upsampled
+        ones, each cloud's own or, with swap_interlevel, the other's."""
+        if self.cfg.swap_interlevel:
+            i1, i2 = i2, i1
+        return (torch.cat([e1["feat"][lvl], i1], -1),
+                torch.cat([e2["feat"][lvl], i2], -1))
 
     def forward(self, xyz1, xyz2, color1, color2) -> Dict[str, Any]:
         cfg = self.cfg
@@ -155,13 +215,14 @@ class BidPointFlowNet(nn.Module):
         # l4 -> l3 skip, both clouds stacked
         f_l4_3 = self.deconv4_3(upsample_idw(e["pc"][3], e["pc"][4],
                                              e["feat"][4]))
-        c_feat1 = cat([e1["feat"][3], f_l4_3[:B]], -1)
-        c_feat2 = cat([e2["feat"][3], f_l4_3[B:]], -1)
-        f1_new, f2_new, cross3 = self.cross3(pc1[3], pc2[3], c_feat1, c_feat2)
+        c_feat1, c_feat2 = self._c_feats(e1, e2, 3, f_l4_3[:B], f_l4_3[B:])
+        f1_new, f2_new, cross3 = self._cross(
+            3, e1, e2, pc2[3], c_feat1, c_feat2, self._feature_knn(3, e1, e2))
         feat3, flow3 = self.flow3(pc1[3], e1["feat"][3], cross3)
 
         flows = [None, None, None, flow3]
         crosses = [None, None, None, cross3]
+        c_feats1, c_feats2 = [None] * 3, [None] * 3
         inter1, inter2 = [None] * 3, [None] * 3
         up_feat, up_flow_src = feat3, flow3
         deconvs = [self.deconv1_0, self.deconv2_1, self.deconv3_2]
@@ -175,8 +236,8 @@ class BidPointFlowNet(nn.Module):
                 e["pc"][lvl], e["pc"][lvl + 1], cat([f1_new, f2_new]),
                 knn=(d2_up, idx_up)))
             inter1[lvl], inter2[lvl] = i_both[:B], i_both[B:]
-            c_feat1 = cat([e1["feat"][lvl], inter1[lvl]], -1)
-            c_feat2 = cat([e2["feat"][lvl], inter2[lvl]], -1)
+            c_feat1, c_feat2 = self._c_feats(e1, e2, lvl, inter1[lvl],
+                                             inter2[lvl])
 
             both_up = upsample_idw(
                 pc1[lvl], pc1[lvl + 1],
@@ -184,32 +245,56 @@ class BidPointFlowNet(nn.Module):
                 knn=(d2_up[:B], idx_up[:B]))
             up_flow, feat_up = both_up[..., :3], both_up[..., 3:]
 
-            if lvl in cfg.coarse_warp:
-                # the inverse flow built at lvl + 1, where the flow lives
-                # before its upsample, and carried to lvl along the pc2
-                # half of the decoder's 3-NN: no lvl-resolution warp search
-                inv_coarse = pc2[lvl + 1] - point_warp(
-                    pc1[lvl + 1], pc2[lvl + 1], cfg.scale * up_flow_src)
-                pc2_warp = pc2[lvl] - upsample_idw(
-                    pc2[lvl], pc2[lvl + 1], inv_coarse,
-                    knn=(d2_up[B:], idx_up[B:]))
-            else:
-                pc2_warp = point_warp(pc1[lvl], pc2[lvl], up_flow)
-            f1_new, f2_new, cross_l = getattr(self, f"cross{lvl}")(
-                pc1[lvl], pc2_warp, c_feat1, c_feat2)
-            feat_l, flow_l = getattr(self, f"flow{lvl}")(
-                pc1[lvl], cat([e1["feat"][lvl], feat_up], -1), cross_l,
-                up_flow)
-            flows[lvl], crosses[lvl] = flow_l, cross_l
+            feat_idx = self._feature_knn(lvl, e1, e2)
+            it_flows, it_c1, it_c2 = [], [], []
+            for it in range(cfg.iters):
+                it_c1.append(c_feat1)
+                it_c2.append(c_feat2)
+                if it == 0 and lvl in cfg.coarse_warp:
+                    # the inverse flow built at lvl + 1, where the flow
+                    # lives before its upsample, and carried to lvl along
+                    # the pc2 half of the decoder's 3-NN: no lvl-resolution
+                    # warp search
+                    inv_coarse = pc2[lvl + 1] - point_warp(
+                        pc1[lvl + 1], pc2[lvl + 1], cfg.scale * up_flow_src)
+                    pc2_warp = pc2[lvl] - upsample_idw(
+                        pc2[lvl], pc2[lvl + 1], inv_coarse,
+                        knn=(d2_up[B:], idx_up[B:]))
+                else:
+                    pc2_warp = point_warp(pc1[lvl], pc2[lvl], up_flow)
+                f1_new, f2_new, cross_l = self._cross(
+                    lvl, e1, e2, pc2_warp, c_feat1, c_feat2, feat_idx)
+                feat_l, flow_l = getattr(self, f"flow{lvl}")(
+                    pc1[lvl], cat([e1["feat"][lvl], feat_up], -1), cross_l,
+                    up_flow)
+                it_flows.append(flow_l)
+                # the next iteration refines from this one
+                up_flow, feat_up = flow_l, feat_l
+                if it + 1 < cfg.iters:
+                    c_feat1 = cat([e1["feat"][lvl], f1_new], -1)
+                    c_feat2 = cat([e2["feat"][lvl], f2_new], -1)
+            many = cfg.iters > 1
+            flows[lvl] = it_flows if many else flow_l
+            c_feats1[lvl] = it_c1 if many else it_c1[0]
+            c_feats2[lvl] = it_c2 if many else it_c2[0]
+            crosses[lvl] = cross_l
             up_flow_src, up_feat = flow_l, feat_l
 
-        return dict(
+        def feats(enc, inter):
+            # the FG family's contract inserts feat_l4 at index 4
+            l4 = [enc["feat"][4]] if cfg.returns_c_feats else []
+            return enc["lift"] + l4 + [inter[2], inter[1], inter[0]]
+
+        out = dict(
             flows=flows,
             fps_idx1=e1["idx"],
             fps_idx2=e2["idx"],
             pc1=pc1[:4],
             pc2=pc2[:4],
-            feat1s=e1["lift"] + [inter1[2], inter1[1], inter1[0]],
-            feat2s=e2["lift"] + [inter2[2], inter2[1], inter2[0]],
+            feat1s=feats(e1, inter1),
+            feat2s=feats(e2, inter2),
             crosses=crosses,
         )
+        if cfg.returns_c_feats:
+            out["c_feat1s"], out["c_feat2s"] = c_feats1, c_feats2
+        return out

@@ -1,8 +1,11 @@
 """Import the reference's PyTorch checkpoints into the port.
 
-Port of kd_pointcloud_tpu/models/torch_import.py for the "teacher" family
-(models_bid_pointconv.py / models_bid_lighttoken_res.py / weight48: the
-architecture of the reference's released checkpoints). The JAX package
+Port of kd_pointcloud_tpu/models/torch_import.py, its three families:
+"teacher" (models_bid_pointconv.py / models_bid_lighttoken_res.py /
+weight48: the architecture of the reference's released checkpoints), "fg"
+(models_bid_FG.py / models_bifeat.py: a PointConv at level 0 after a
+level0_lift block, and no level0_2) and "vote" (the teacher's keys and a
+1x1 `vote` conv in each cross layer). The JAX package
 turns a reference state_dict into flax trees; the port maps it straight
 onto its own state_dict, with no transposes: the reference's 1x1 Conv
 weights (O, I, 1[, 1]) become (O, I) Dense weights, its Linear weights are
@@ -12,8 +15,7 @@ running_mean, running_var and num_batches_tracked.
 
 Dead parameters of the reference are skipped, as in the JAX package: the
 cross layers' bias1 / bias2 (never used) and the WeightNets' mlp_bns (built
-but bypassed). Any other key left over is an error. The other families
-(fg, vote) wait for their presets.
+but bypassed). Any other key left over is an error.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ import torch
 _CONV_BLOCKS = ("level0", "level0_1", "level0_2", "level1_0", "level1_1",
                 "level2_0", "level2_1", "level3_0", "level3_1",
                 "deconv4_3", "deconv3_2", "deconv2_1", "deconv1_0")
+# the FG family's: level0 is a PointConv, fed by level0_lift
+_CONV_BLOCKS_FG = ("level0_lift", "level0_1", "level1_0", "level1_1",
+                   "level2_0", "level2_1", "level3_0", "level3_1",
+                   "deconv4_3", "deconv3_2", "deconv2_1", "deconv1_0")
+FAMILIES = ("teacher", "fg", "vote")
 _CROSS_DENSE = ("cross_t11", "cross_t22", "cross_t1", "cross_t2", "pos1",
                 "pos2")
 _BN = ("weight", "bias", "running_mean", "running_var",
@@ -39,9 +46,8 @@ def convert_state_dict(state_dict: Dict[str, Any], family: str = "teacher"
     """The port's BidPointFlowNet state_dict from a reference state_dict
     (raw, or under "state_dict"; a DataParallel "module." prefix is
     dropped)."""
-    if family != "teacher":
-        raise NotImplementedError(
-            f"family {family!r}: the port imports the teacher family only")
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r}: one of {FAMILIES}")
     if isinstance(state_dict.get("state_dict"), dict):
         state_dict = state_dict["state_dict"]
     sd = {k[7:] if k.startswith("module.") else k: v
@@ -67,9 +73,9 @@ def convert_state_dict(state_dict: Dict[str, Any], family: str = "teacher"
                   f"{dst}.weightnet.layers.{j}")
         dense(f"{src}.linear", f"{dst}.dense", conv=False)
 
-    for name in _CONV_BLOCKS:
+    for name in _CONV_BLOCKS_FG if family == "fg" else _CONV_BLOCKS:
         dense(f"{name}.composed_module.0", f"{name}.dense")
-    for lvl in range(1, 5):
+    for lvl in range(0 if family == "fg" else 1, 5):
         pointconv(f"level{lvl}", f"level{lvl}")
     for lvl in range(4):
         base = f"cross{lvl}"
@@ -81,6 +87,8 @@ def convert_state_dict(state_dict: Dict[str, Any], family: str = "teacher"
                 dense(f"{base}.{mlp}.{i}.composed_module.0",
                       f"{base}.{mlp}.layers.{i}.dense")
                 i += 1
+        if family == "vote":
+            dense(f"{base}.vote", f"{base}.vote")
     for lvl in range(4):
         base = f"flow{lvl}"
         i = 0

@@ -1,8 +1,9 @@
-"""Neural modules of the port (the teacher and the student presets)."""
+"""Neural modules of the port (every preset of the model family)."""
 
 from .blocks import (MLP, BottleNeck, Dense, DepthwiseReLU, PointwiseBlock,
                      leaky)
-from .cross import CrossLayerLight
+from .cross import (CrossLayerLight, CrossLayerLightFG, CrossLayerLightVote,
+                    NoCrossLayerLight)
 from .flowhead import SceneFlowEstimatorResidual
 from .pointconv import (PointConv, PointConvD, PointConvNonLinear,
                         contract_dense, group_knn)
@@ -10,7 +11,8 @@ from .weightnet import WeightNet
 
 __all__ = [
     "MLP", "BottleNeck", "Dense", "DepthwiseReLU", "PointwiseBlock", "leaky",
-    "CrossLayerLight", "SceneFlowEstimatorResidual", "PointConv",
+    "CrossLayerLight", "CrossLayerLightFG", "CrossLayerLightVote",
+    "NoCrossLayerLight", "SceneFlowEstimatorResidual", "PointConv",
     "PointConvD", "PointConvNonLinear",
     "contract_dense", "group_knn", "WeightNet",
 ]

@@ -7,12 +7,12 @@ from .distance import square_distance
 from .fps import furthest_point_sample
 from .gather import gather_points, group_points
 from .interpolate import upsample_idw
-from .knn import knn_point, knn_point_dist
+from .knn import knn_features, knn_point, knn_point_dist
 from .pool_fused import leaky, pool_mlp_max
 from .warp import point_warp
 
 __all__ = [
     "square_distance", "furthest_point_sample", "gather_points",
-    "group_points", "upsample_idw", "knn_point", "knn_point_dist",
+    "group_points", "upsample_idw", "knn_features", "knn_point", "knn_point_dist",
     "leaky", "pool_mlp_max", "point_warp",
 ]

@@ -14,6 +14,12 @@ moves in steps of ~6e-5) equal distances among near neighbours are common.
 
 The TPU's approximate selection (lax.approx_min_k and the fused kernel's
 float-float mode) is not reproduced: the port's search is exact.
+
+``knn_features`` is the search in feature space (D = 32-256, the FG cross
+layer's feature half). The JAX package runs it as XLA, no Pallas kernel
+(its fused kernel takes 3-D points only), so it is plain PyTorch on every
+device: the expansion with its cross term as one float32 matrix product,
+and an exact selection, ties toward the lower key index.
 """
 
 from __future__ import annotations
@@ -109,6 +115,54 @@ def knn_striped(k: int, xyz: torch.Tensor, query: torch.Tensor, lanes: int):
                                                             dtype=li.dtype)),
                              li)
     return ld[..., :k].contiguous(), li[..., :k].contiguous()
+
+
+def feature_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """|s|^2 - 2 s.d + |d|^2 between every (src, dst) row pair, the cross
+    term one matrix product (full float32 where use_full_fp32 set it, as
+    the JAX package's precision="highest"), summed in the JAX package's
+    order: (|s|^2 - 2 s.d) + |d|^2."""
+    d = torch.matmul(src, dst.transpose(-1, -2))
+    d.mul_(-2.0).add_((src * src).sum(-1, keepdim=True))
+    return d.add_((dst * dst).sum(-1)[..., None, :])
+
+
+def smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (int32) of the k smallest entries of each row of d, in
+    ascending order, equal values lower index first (lax.top_k's order).
+
+    torch.topk of the k + 1 smallest values: where they strictly increase,
+    the first k are the only possible answer, whatever order topk gives
+    equal values (it promises none). A row with two equal values among
+    them takes a stable sort of the row instead; such rows are rare on
+    real features, so finding them (one host sync a call) costs less than
+    sorting every row."""
+    vals, idx = torch.topk(d, min(k + 1, d.shape[-1]), dim=-1,
+                           largest=False)
+    tied = (vals[..., 1:] == vals[..., :-1]).any(-1)
+    idx = idx[..., :k]
+    if bool(tied.any()):
+        rows = tied.nonzero(as_tuple=True)
+        idx[rows] = torch.sort(d[rows], dim=-1, stable=True)[1][..., :k]
+    return idx.int()
+
+
+def knn_features(k: int, keys: torch.Tensor, query: torch.Tensor
+                 ) -> torch.Tensor:
+    """Indices (B, S, k) int32 of the k nearest rows of keys (B, N, D)
+    around each query row (B, S, D), in feature space: feature_distance
+    and smallest_k in query chunks of 2048, as the JAX package's exact
+    knn_point. Plain PyTorch on every device, without autograd (indices
+    carry no gradient)."""
+    if (keys.dim() != 3 or query.dim() != 3 or keys.shape[0] != query.shape[0]
+            or keys.shape[2] != query.shape[2] or not 0 < k <= keys.shape[1]):
+        raise ValueError(f"knn_features takes (B, N, D) keys and (B, S, D) "
+                         f"queries, 0 < k <= N; got keys "
+                         f"{tuple(keys.shape)}, queries "
+                         f"{tuple(query.shape)}, k={k}")
+    with torch.no_grad():
+        return torch.cat([smallest_k(feature_distance(q, keys), k)
+                          for q in torch.split(query, _CHUNK, dim=1)], dim=1)
 
 
 def _check(k: int, xyz: torch.Tensor, query: torch.Tensor) -> None:

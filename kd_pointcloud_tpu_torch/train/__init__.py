@@ -8,7 +8,8 @@ from .checkpoints import (best_checkpoint, full_state_tree, load_checkpoint,
                           load_msgpack_checkpoint, load_msgpack_tree,
                           parse_epoch_from_name, restore_train_state,
                           save_checkpoint)
-from .distill import apply_frozen, make_bridge_distill_step, make_distill_step
+from .distill import (apply_frozen, make_bridge_distill_step,
+                      make_distill_step, make_fast_distill_step)
 from .distill_experiment import compute_teacher_history, make_named_loss
 from .loop import (PAD_PATH, batch_to_device, eval_sceneflow,
                    make_eval_step, make_train_step, supervised_loss)
@@ -18,7 +19,8 @@ from .state import (custom_lr, lr_for_epoch, make_optimizer,
 __all__ = ["PAD_PATH", "batch_to_device", "eval_sceneflow", "make_eval_step",
            "make_train_step", "supervised_loss", "custom_lr", "lr_for_epoch",
            "make_optimizer", "set_learning_rate", "step_lr",
-           "apply_frozen", "make_distill_step", "make_bridge_distill_step",
+           "apply_frozen", "make_distill_step", "make_fast_distill_step",
+           "make_bridge_distill_step",
            "compute_teacher_history", "make_named_loss", "best_checkpoint",
            "full_state_tree", "load_checkpoint", "load_msgpack_checkpoint",
            "load_msgpack_tree", "parse_epoch_from_name",

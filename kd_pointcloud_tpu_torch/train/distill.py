@@ -1,7 +1,8 @@
 """Knowledge-distillation train steps.
 
-Port of kd_pointcloud_tpu/train/distill.py make_distill_step and
-make_bridge_distill_step (reference distilTrain.py:156-182,
+Port of kd_pointcloud_tpu/train/distill.py make_distill_step,
+make_fast_distill_step and make_bridge_distill_step (reference
+distilTrain.py:156-182, fast_distillTrain.py:161-189,
 distillBridge.py:141-188). As train/loop.py make_train_step, a step is a
 plain function over the models and optimizers, which it updates in place.
 
@@ -9,8 +10,7 @@ The teacher is frozen, as the JAX package's _apply_frozen: it runs in
 eval() (BatchNorm on its running statistics, which never move) under
 torch.no_grad(), so no autograd graph is recorded for it and its pool
 launches no backward kernel; it is never switched to train(). The student
-runs in train(). The iterative fast step (make_fast_distill_step) waits for
-the bifeat / fg presets.
+runs in train().
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..device import use_full_fp32
-from ..losses import bridge_ht_loss, cross_bidirection_loss_ht
+from ..losses import (att_iter_loss, bridge_ht_loss,
+                      cross_bidirection_loss_ht)
 
 
 def _forward(model, batch):
@@ -68,6 +69,23 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
         return loss.detach()
 
     return step
+
+
+def make_fast_distill_step(t_model, s_model, optimizer, gamma: float = 0.6,
+                           layers=(1, 2)):
+    """fn(batch) -> loss (detached): the attentive per-iteration KD step of
+    an iterative teacher (bifeat) into a student (fg), as make_distill_step
+    with att_iter_loss(gamma, layers): the student's flow at each of
+    `layers` imitates every teacher iteration's, weighted by 1 - softmax
+    over iterations of the teacher's error against the ground truth
+    (configs/fast_distill.yaml: gamma 0.6, layers [1, 2])."""
+
+    def loss_fn(s_out, t_out, batch):
+        return att_iter_loss(s_out["flows"], s_out["fps_idx1"], batch["flow"],
+                             t_out["flows"], t_out["fps_idx1"], gamma,
+                             layers)
+
+    return make_distill_step(t_model, s_model, optimizer, loss_fn=loss_fn)
 
 
 def make_bridge_distill_step(t_model, s_model, bridge, s_optimizer,

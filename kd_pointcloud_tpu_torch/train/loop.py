@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import use_full_fp32
+from ..eval.runner import flow0_of
 from ..losses import multi_scale_loss, multi_scale_loss_per_sample
 
 # the data loader's path of a pad row (kd_pointcloud_tpu/data/loader.py)
@@ -56,11 +57,6 @@ def make_train_step(model, optimizer, loss_fn: Optional[Callable] = None):
         return loss.detach()
 
     return step
-
-
-def flow0_of(out) -> torch.Tensor:
-    flow0 = out["flows"][0]
-    return flow0[-1] if isinstance(flow0, (list, tuple)) else flow0
 
 
 def epe3d_per_sample(flow0: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -160,7 +160,9 @@ def test_pth_reader_refuses_unknown_keys_and_families():
     sd = torch.load(PTH, map_location="cpu", weights_only=True)["state_dict"]
     with pytest.raises(ValueError, match="unmapped"):
         convert_state_dict(dict(sd, **{"level9.extra": torch.zeros(1)}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="family"):
+        convert_state_dict(sd, family="student")
+    with pytest.raises(KeyError):       # a teacher file read as the FG family
         convert_state_dict(sd, family="fg")
     renamed = {f"module.{k}": v for k, v in sd.items()}
     assert set(convert_state_dict({"state_dict": renamed})) == \

@@ -168,16 +168,25 @@ def test_config_fields_match_jax():
 
 @pytest.mark.parametrize("name", ["teacher", "lighttoken_res", "serving",
                                   "serving_v2", "weight48", "serving_v3",
-                                  "student", "student2", "non_linear"])
+                                  "student", "student2", "non_linear", "fg",
+                                  "bifeat", "no_cross", "vote"])
 def test_teacher_wiring_presets_accepted(name):
     check_config(PRESETS[name])
     BidPointFlowNet(tiny_config(name), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["fg", "bifeat", "no_cross", "vote"])
-def test_uncovered_presets_raise(name):
+@pytest.mark.parametrize("change", [dict(fps_blocks=2),
+                                    dict(coarse_warp=(3,)),
+                                    dict(encoder="mlp"),
+                                    dict(cross="attention")])
+def test_uncovered_presets_raise(change):
+    """What the port still refuses: the blocked-FPS relaxation, a coarse
+    warp at l3, and wirings no preset names."""
+    cfg = dataclasses.replace(tiny_config("teacher"), **change)
     with pytest.raises(NotImplementedError):
-        BidPointFlowNet(tiny_config(name), device="cpu")
+        check_config(cfg)
+    with pytest.raises(NotImplementedError):
+        BidPointFlowNet(cfg, device="cpu")
 
 
 def test_bridge_covers_every_state_entry(teacher):
