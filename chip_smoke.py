@@ -14,7 +14,9 @@ at l0); the eval forwards of the student presets (student, serving_v3's
 coarse warp, student2, non_linear); the feature-grouping family's eval
 forwards (bifeat, fg) and the fast KD step bifeat -> fg
 (configs/fast_distill.yaml), through train.make_fast_distill_step; and
-the no_cross and vote eval forwards -- and holds each hand-written kernel
+the no_cross and vote eval forwards; then the user's path, the cli
+entries from a YAML through the data pipeline and the epoch loops to the
+six-metric eval and the checkpoint -- and holds each hand-written kernel
 against its plain PyTorch version. Phases, each printing flushed lines as
 it goes:
 
@@ -26,7 +28,8 @@ it goes:
      hands each kernel (1 FPS, 19 kNN, 12 pool call sites): FPS
      bit-identical, with its launch plan (blocks a cloud, from the card's
      cluster occupancy), also on duplicated points (ties across lanes,
-     warps and blocks) and at N = 8000 (padding), at every cluster size;
+     warps and blocks), at N = 8000 (padding) and at l2-l4's N (2048 ->
+     512 -> 256 -> 64, as nested_fps=False samples), at every cluster size;
      kNN bit-identical (indices in order and d2) at every site, with its
      launch plan (lanes a query, queries a block); pool within 1e-4 x
      max|plain|, also at K = 9 with N1 off every query tile;
@@ -130,12 +133,30 @@ it goes:
  21. the no_cross and vote eval forwards at batch 1 against the plain
      versions (launches from the wiring: pool 4 and 8; vote's last round
      is plain PyTorch);
- 22. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
+ 22. the user's path (workflow): the cli entries on seeded HPLFlowNet-
+     layout trees written to a temporary directory (16 + 4 FT3D-subset
+     scenes of 10240 points, the class's counts lowered to them; KITTI's
+     200 scene directories, 3 mapped scenes of 20480 points with ground
+     rows, calib files), each from its configs/*.yaml with the tree, the
+     epochs and full: true over it: train_teacher_ft3d at batch 3 for 2
+     epochs of 2 steps, with loss, eval EPE3D, wall and checkpoint an
+     epoch, then a resume from the best checkpoint for one more epoch (its
+     epoch the checkpoint's + 1, its best EPE the checkpoint's); the
+     loader's ms a batch at 0 and 2 workers; evaluate_kitti with the
+     trained checkpoint (all six metrics, launches a pair FPS 1, kNN 19,
+     pool 12); the device and host eval paths on KITTI (batch 1) and on
+     FT3D val (batch 3, padded last batch), within EVAL_PATHS_RTOL (ACC2D
+     as counts: at most one point a scene apart, a threshold tie); and
+     distill_kd (batch 8), distill_bridge (both from the trained teacher)
+     and fast_distill, 1 epoch of 2 steps each, with the checkpoint
+     written; every run's launches counted from 0;
+ 23. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
      for the kernels of the paths, the train step's, the eval forward's,
-     the student KD step's and the fast KD step's beside them, and the
-     pool's C = 16 sites; the attic kernels at their phase-9 shapes; the
-     feature kNN, plain PyTorch, per fast KD step and FG eval pair);
- 23. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+     the student KD step's and the fast KD step's beside them, the pool's
+     C = 16 sites, and each workflow run's launches; the attic kernels at
+     their phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step
+     and FG eval pair);
+ 24. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -149,6 +170,7 @@ import contextlib
 import copy
 import faulthandler
 import json
+import math
 import re
 import shutil
 import statistics
@@ -190,6 +212,18 @@ FAST_KD_ARGS = dict(gamma=0.6, layers=(1, 2))
 ABLATION_PRESETS = ("no_cross", "vote")
 FEATURE_REPS = 5
 FPS_PRUNED_BATCHES = (2, 6, 16)    # stacked clouds: eval, train, KD forward
+# FPS at l2-l4 when nested_fps=False: (N, npoint) of each level's call
+NESTED_FPS = ((2048, 512), (512, 256), (256, 64))
+# the workflow phase's seeded trees: FT3D-subset scenes (batch 3 x 2 train
+# steps, batch 8 x 2 KD steps; a padded last val batch at 3) and KITTI's 3
+# mapped scenes, rows a scene before sampling to N_POINTS
+WORKFLOW_FT3D = dict(train=16, val=4, points=10240)
+WORKFLOW_KITTI = dict(mapped=(0, 1, 5), points=20480)
+WORKFLOW_STEPS = 2
+WORKFLOW_KD_BATCH = 8
+# device against host eval path: the same forward, metrics in torch on the
+# card against numpy on the host (float32 sums in another order)
+EVAL_PATHS_RTOL = 1e-5
 ATTIC_TOL = 1e-4                   # x max|plain|: float32 sums, other order
 # the backward kernel adds d_u, d_weight and d_bias with float atomics, in
 # an order that changes from run to run: float32 rounding of sums over up
@@ -504,6 +538,220 @@ def compare_stats(model_k, model_p) -> float:
     return err
 
 
+def workflow(device: str, n_points: int = N_POINTS, ft3d=None, kitti=None,
+             steps: int = WORKFLOW_STEPS) -> dict:
+    """The user's path through the cli entries, on seeded trees written
+    under a temporary directory (data.synthetic): an FT3D-subset tree of
+    ft3d["train"] + ft3d["val"] scenes (the class's counts lowered to it)
+    and a KITTI tree of 200 scene directories, ft3d / kitti["points"] rows
+    a scene. Each run reads a kd_pointcloud_tpu/configs YAML with the tree,
+    an experiment directory, the epochs and full: true written over it:
+
+      train (2 epochs of `steps` steps, then a resume from the best
+      checkpoint for one more epoch), the loader alone (ms a batch at 0 and 2
+      workers), evaluate on KITTI with the trained checkpoint, the device
+      and host eval paths on KITTI (batch 1) and FT3D val (batch 3, padded
+      last batch) from fresh loaders at 0 workers, so both see the same
+      points, and distill, distill_bridge (the trained teacher) and
+      fast_distill, 1 epoch of `steps` steps each.
+
+    Every run's kernel launches are counted from 0 (set just before it,
+    read just after). Returns what it measured; raises on a fault."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from kd_pointcloud_tpu_torch.cli import (distill, distill_bridge,
+                                             evaluate, fast_distill, train)
+    from kd_pointcloud_tpu_torch.data import (DataLoader, datasets,
+                                              native_io, synthetic)
+    from kd_pointcloud_tpu_torch.eval import evaluate_model
+    from kd_pointcloud_tpu_torch.ops import kernels
+    from kd_pointcloud_tpu_torch.train import (build_datasets, build_model,
+                                               load_checkpoint, load_weights)
+    from kd_pointcloud_tpu_torch.utils import Config, postprocess
+
+    ft3d = ft3d or WORKFLOW_FT3D
+    kitti = kitti or WORKFLOW_KITTI
+    cuda = device == "cuda"
+    out = dict(runs={}, native_io=native_io.available())
+    base = Path(tempfile.mkdtemp(prefix="kdpc_workflow_"))
+    cls = datasets.FlyingThings3DSubset
+    counts = cls.TRAIN_COUNT, cls.VAL_COUNT
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def config(name, **over):
+        raw = yaml.safe_load((ROOT / "kd_pointcloud_tpu" / "configs"
+                              / f"{name}.yaml").read_text())
+        raw.update(over)
+        path = base / f"{name}_{len(list(base.glob('*.yaml')))}.yaml"
+        path.write_text(yaml.safe_dump(raw))
+        return str(path)
+
+    def run(label, fn):
+        sync()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        result = fn()
+        sync()
+        out["runs"][label] = dict(seconds=time.perf_counter() - t,
+                                  launches=dict(kernels.LAUNCHES))
+        return result
+
+    def epochs_log(label, history):
+        for h in history:
+            steps_ = max(h["steps"], 1)
+            log(f"  {label} epoch {h['epoch']}: loss {h['loss']:.6f}, eval "
+                + ("skipped" if h["epe"] is None else
+                   f"EPE3D {h['epe']:.6f}, eval loss {h['eval_loss']:.6f}")
+                + f"; wall {h['seconds']:.3f} s (loader wait "
+                f"{h['load_s'] * 1e3 / steps_:.3f} ms a step, "
+                f"{(h['train_s'] - h['load_s']) * 1e3 / steps_:.3f} ms a "
+                f"step else, eval {h['eval_s']:.3f} s); checkpoint "
+                f"{Path(h['checkpoint']).name if h['checkpoint'] else '-'}")
+            check(all(x is None or math.isfinite(x) for x in
+                      (h["loss"], h["epe"], h["eval_loss"])),
+                  f"{label} epoch {h['epoch']}: not finite")
+
+    try:
+        cls.TRAIN_COUNT, cls.VAL_COUNT = ft3d["train"], ft3d["val"]
+        t = time.perf_counter()
+        ft_root = synthetic.write_ft3d_tree(str(base / "ft3d"),
+                                            ft3d["train"], ft3d["val"],
+                                            ft3d["points"], seed=SEED)
+        kitti_root, calib = synthetic.write_kitti_tree(
+            str(base / "kitti"), kitti["mapped"], kitti["points"],
+            seed=SEED)
+        log(f"  trees: FT3D {ft3d['train']} train + {ft3d['val']} val "
+            f"scenes of {ft3d['points']} points, KITTI 200 scene "
+            f"directories, {len(kitti['mapped'])} mapped of "
+            f"{kitti['points']} points with ground rows, in "
+            f"{time.perf_counter() - t:.3f} s; native reader "
+            f"{'built' if out['native_io'] else 'unavailable: numpy'}")
+        common = dict(data_root=ft_root, experiment_dir=str(base / "exp"),
+                      num_points=n_points, full=True)
+        argv = ["--device", device]
+
+        # ---- train, then resume from the best checkpoint
+        t_cfg = config("train_teacher_ft3d", epochs=2, **common)
+        _, _, best, _, hist = run("train", lambda: train.main(
+            [t_cfg, *argv], max_steps_per_epoch=steps))
+        epochs_log("train", hist)
+        ckpt = [h["checkpoint"] for h in hist if h["checkpoint"]][-1]
+        saved = load_checkpoint(ckpt)
+        check(best == saved["best_epe"], "best EPE is not the checkpoint's")
+        r_cfg = config("train_teacher_ft3d", epochs=saved["epoch"] + 2,
+                       pretrain=ckpt, **common)
+        _, _, best_r, _, hist_r = run("resume", lambda: train.main(
+            [r_cfg, *argv], max_steps_per_epoch=steps))
+        epochs_log("resume", hist_r)
+        check([h["epoch"] for h in hist_r] == [saved["epoch"] + 1],
+              f"resumed at {[h['epoch'] for h in hist_r]}, checkpoint "
+              f"epoch {saved['epoch']}")
+        check(best_r == min(saved["best_epe"], hist_r[0]["epe"]),
+              "the resumed run did not start from the checkpoint's best")
+        log(f"  resume: checkpoint epoch {saved['epoch']}, best EPE "
+            f"{saved['best_epe']:.6f}; resumed at epoch "
+            f"{hist_r[0]['epoch']}, best EPE after it {best_r:.6f}")
+        out["train"] = dict(epochs=hist, resume=hist_r)
+
+        # ---- the loader alone: ms a batch, in-process and with the pool
+        args = postprocess(Config(yaml.safe_load(Path(t_cfg).read_text())))
+        train_ds, _ = build_datasets(args)
+        out["loader_ms"] = {}
+        for batch in (args.batch_size, WORKFLOW_KD_BATCH):
+            for workers in (0, args.workers):
+                loader = DataLoader(train_ds, batch, shuffle=True,
+                                    drop_last=True, num_workers=workers)
+                t = time.perf_counter()
+                stamps = [time.perf_counter() for _ in loader]
+                loader.close()
+                first = (stamps[0] - t) * 1e3
+                rest = ((stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+                        if len(stamps) > 1 else float("nan"))
+                out["loader_ms"][f"batch {batch}, {workers} workers"] = dict(
+                    first=first, then=rest, batches=len(stamps))
+                log(f"  loader: batch {batch}, {workers} workers: first "
+                    f"batch {first:.3f} ms"
+                    + (" (the pool's start included)" if workers else "")
+                    + f", then {rest:.3f} ms a batch over "
+                    f"{len(stamps) - 1} more")
+
+        # ---- evaluate with the trained checkpoint (KITTI, batch 1)
+        e_cfg = config("evaluate_kitti", data_root=kitti_root,
+                       pretrain=ckpt, num_points=n_points)
+        results = run("evaluate", lambda: evaluate.main([e_cfg, *argv]))
+        n_pairs = len(kitti["mapped"])
+        per = {k: v / n_pairs for k, v in
+               out["runs"]["evaluate"]["launches"].items() if v}
+        log("  evaluate (KITTI, 3 scenes, batch 1): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in results.items())
+            + f"; launches a pair {per}")
+        check(all(math.isfinite(v) for v in results.values()),
+              f"evaluate: {results}")
+        out["evaluate"] = dict(metrics=results, launches_a_pair=per)
+
+        # ---- the device and host paths on the same points
+        model = build_model(Config(), device=device)
+        model.load_state_dict(load_weights(ckpt), strict=True)
+        e_args = postprocess(Config(yaml.safe_load(Path(e_cfg).read_text())))
+        out["eval_paths"] = {}
+        for label, a, batch, n_real in (
+                ("KITTI", e_args, 1, n_pairs),
+                ("FT3D val", args, 3, ft3d["val"])):
+            sweeps = {}
+            for path in ("device", "host"):
+                _, val_ds = build_datasets(a, need_train=False)
+                loader = DataLoader(val_ds, batch, shuffle=False,
+                                    pad_last=True, num_workers=0)
+                sweeps[path] = run(f"eval {label} {path}", lambda: (
+                    evaluate_model(model, loader, calib_dir=calib,
+                                   device_metrics=path == "device")))
+                ms = out["runs"][f"eval {label} {path}"]["seconds"] * 1e3
+                log(f"  {label} {path} path, batch {batch}, {n_real} "
+                    f"scenes ({ms / n_real:.3f} ms a scene): " + ", ".join(
+                        f"{k} {v:.6f}" for k, v in sweeps[path].items()))
+            dev, host = sweeps["device"], sweeps["host"]
+            check(list(dev) == list(host), f"{label}: keys differ")
+            for k in dev:
+                if k == "acc2d":        # counts of points, ties aside
+                    diff = abs(dev[k] - host[k]) * n_points * n_real
+                    check(diff <= n_real + 1e-3,
+                          f"{label} acc2d counts differ by {diff}")
+                else:
+                    check(abs(dev[k] - host[k]) <= EVAL_PATHS_RTOL * max(
+                        abs(host[k]), 1e-6), f"{label} {k}: {dev[k]} "
+                          f"device, {host[k]} host")
+            out["eval_paths"][label] = sweeps
+        del model
+
+        # ---- the three distillation entries
+        teacher = dict(ckpt_dir=str(Path(ckpt).parent),
+                       teacher_model=Path(ckpt).name)
+        out["distill"] = {}
+        for label, entry, name, extra in (
+                ("distill", distill, "distill_kd", teacher),
+                ("distill_bridge", distill_bridge, "distill_bridge",
+                 teacher),
+                ("fast_distill", fast_distill, "fast_distill", {})):
+            d_cfg = config(name, epochs=1, **common, **extra)
+            _, _, best_d, _, hist_d = run(label, lambda: entry.main(
+                [d_cfg, *argv], max_steps_per_epoch=steps))
+            epochs_log(label, hist_d)
+            check(hist_d[0]["checkpoint"] is not None
+                  and Path(hist_d[0]["checkpoint"]).exists(),
+                  f"{label}: no checkpoint written")
+            out["distill"][label] = hist_d
+    finally:
+        cls.TRAIN_COUNT, cls.VAL_COUNT = counts
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     t0 = time.monotonic()
     import torch
@@ -523,7 +771,7 @@ def main() -> int:
     from kd_pointcloud_tpu_torch.attic import fps_pruned as pruned_mod
     from kd_pointcloud_tpu_torch.eval import (evaluate_model,
                                               make_eval_forward,
-                                              synthetic_pairs)
+                                              pairs_loader, synthetic_pairs)
     from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                                 Bridge)
     from kd_pointcloud_tpu_torch.nn import cross as cross_nn
@@ -557,7 +805,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/23 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/24 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -567,7 +815,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/23 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/24 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -657,7 +905,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/23 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/24 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -854,9 +1102,23 @@ def main() -> int:
     fps_identical((tied, m0), "tie case ", every_g=True)
     fps_identical((xyz0[:, :8000].contiguous(), 2000), "N=8000 ",
                   every_g=True)
+    # nested_fps=False samples l2-l4 by FPS again (2048 -> 512 -> 256 ->
+    # 64) from the l1 cloud in FPS order, which selects its prefix; a
+    # shuffled copy makes the selection real
+    with torch.inference_mode():
+        order = plain_fns["fps"](xyz0, m0).long()
+    l1 = xyz0.gather(1, order[..., None].expand(-1, -1, 3))
+    shuffle = torch.randperm(m0, generator=torch.Generator().manual_seed(
+        SEED)).cuda()
+    for n, m_ in NESTED_FPS:
+        fps_identical((l1[:, :n].contiguous(), m_), "nested_fps=False ",
+                      every_g=True)
+        fps_identical((l1[:, shuffle[shuffle < n]].contiguous(), m_),
+                      "nested_fps=False shuffled ", every_g=True)
     results["fps"]["match"] = (
         "bit-identical at every eval, train and KD site, on duplicated "
-        "points and at N = 8000, at every cluster size")
+        "points, at N = 8000 and at l2-l4's N (nested_fps=False), at every "
+        "cluster size")
 
     with torch.inference_mode():
 
@@ -873,11 +1135,12 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4
     kernels.reset_launches()
-    metrics = evaluate_model(model, pairs[:N_METRIC_PAIRS])
+    metrics = evaluate_model(model, pairs_loader(pairs[:N_METRIC_PAIRS]),
+                             with_2d=False)
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/23 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/24 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -930,7 +1193,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/23 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/24 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -977,7 +1240,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/23 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/24 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -1004,7 +1267,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/23 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/24 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -1084,7 +1347,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/23 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/24 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -1100,7 +1363,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/23 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/24 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1199,7 +1462,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/23 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/24 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1231,7 +1494,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/23 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/24 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1267,7 +1530,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/23 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/24 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1309,7 +1572,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/23 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/24 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1336,7 +1599,7 @@ def main() -> int:
     c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
     check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
           f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
-    log(f"[14/23 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+    log(f"[14/24 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
     for line in ptxas_summary(info["log"]):
@@ -1371,7 +1634,7 @@ def main() -> int:
     loss_k = float(s_step(kd_batch))
     s_launches = dict(kernels.LAUNCHES)
     s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
-    log(f"[15/23 student KD path] one distill step, teacher -> student, "
+    log(f"[15/24 student KD path] one distill step, teacher -> student, "
         f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
         f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
     check(s_launches == PER_KD_STEP,
@@ -1409,7 +1672,7 @@ def main() -> int:
     deadline("student KD path")
 
     # ---------------------------------------------------------------- 16
-    time_steps(s_step, kd_batch, "16/23 student KD timing", "KD step",
+    time_steps(s_step, kd_batch, "16/24 student KD timing", "KD step",
                KD_BATCH)
     s_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(s_model).train()
@@ -1448,7 +1711,7 @@ def main() -> int:
     deadline("student KD timing")
 
     # ---------------------------------------------------------------- 17
-    log(f"[17/23 student presets' eval forwards] batch 1, {N_POINTS} "
+    log(f"[17/24 student presets' eval forwards] batch 1, {N_POINTS} "
         f"points, through evaluate_model, each against its plain versions; "
         f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
     teacher_knn = sorted(site("knn", args) for args in calls["knn"])
@@ -1457,7 +1720,8 @@ def main() -> int:
             PRESETS[name], device="cuda",
             generator=torch.Generator().manual_seed(SEED))
         kernels.reset_launches()
-        metrics = evaluate_model(pmodel, pairs[:1])
+        metrics = evaluate_model(pmodel, pairs_loader(pairs[:1]),
+                                 with_2d=False)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
@@ -1496,7 +1760,7 @@ def main() -> int:
         deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 18
-    log(f"[18/23 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
+    log(f"[18/24 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
         f"{N_POINTS} points, through evaluate_model, each against its plain "
         f"versions and timed over {N_TIMED_PAIRS} pairs")
     fg_eval = {}
@@ -1505,7 +1769,8 @@ def main() -> int:
             PRESETS[name], device="cuda",
             generator=torch.Generator().manual_seed(SEED))
         kernels.reset_launches()
-        metrics = evaluate_model(fmodel, pairs[:1])
+        metrics = evaluate_model(fmodel, pairs_loader(pairs[:1]),
+                                 with_2d=False)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         want = forward_launches(PRESETS[name])
@@ -1567,7 +1832,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(f_step(kd_batch))
     f_launches = dict(kernels.LAUNCHES)
-    log(f"[19/23 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
+    log(f"[19/24 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
         f"-> {FAST_STUDENT}, batch {KD_BATCH}, {N_POINTS} points, "
         f"att_iter_loss {FAST_KD_ARGS}: launches {f_launches}")
     check(f_launches == per_fast,
@@ -1598,7 +1863,7 @@ def main() -> int:
     deadline("fast KD path")
 
     # ---------------------------------------------------------------- 20
-    time_steps(f_step, kd_batch, "20/23 fast KD timing", "fast KD step",
+    time_steps(f_step, kd_batch, "20/24 fast KD timing", "fast KD step",
                KD_BATCH)
     f_calls, f_feat = {n: [] for n in points}, []
     rec_student = copy.deepcopy(f_student).train()
@@ -1645,14 +1910,15 @@ def main() -> int:
     deadline("fast KD timing")
 
     # ---------------------------------------------------------------- 21
-    log(f"[21/23 no_cross and vote eval forwards] batch 1, {N_POINTS} "
+    log(f"[21/24 no_cross and vote eval forwards] batch 1, {N_POINTS} "
         "points, through evaluate_model, each against its plain versions")
     for name in ABLATION_PRESETS:
         amodel = BidPointFlowNet(
             PRESETS[name], device="cuda",
             generator=torch.Generator().manual_seed(SEED))
         kernels.reset_launches()
-        metrics = evaluate_model(amodel, pairs[:1])
+        metrics = evaluate_model(amodel, pairs_loader(pairs[:1]),
+                                 with_2d=False)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         want = forward_launches(PRESETS[name])
@@ -1666,6 +1932,37 @@ def main() -> int:
         deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 22
+    t_phase = time.monotonic()
+    log(f"[22/24 workflow] the cli entries (train with resume, evaluate, "
+        f"the device and host eval paths, distill, distill_bridge, "
+        f"fast_distill) at {N_POINTS} points and full width, on seeded "
+        f"trees")
+    flow = workflow("cuda")
+    runs = flow["runs"]
+    for label, r in runs.items():
+        log(f"  {label}: {r['seconds']:.3f} s, launches "
+            f"{ {n: c for n, c in r['launches'].items() if c} }")
+    forwards = {"evaluate": len(WORKFLOW_KITTI["mapped"]),
+                "eval KITTI device": len(WORKFLOW_KITTI["mapped"]),
+                "eval KITTI host": len(WORKFLOW_KITTI["mapped"]),
+                "eval FT3D val device": -(-WORKFLOW_FT3D["val"] // 3),
+                "eval FT3D val host": -(-WORKFLOW_FT3D["val"] // 3)}
+    for label, n in forwards.items():
+        want = {k: PER_FORWARD[k] * n for k in PER_FORWARD}
+        check(runs[label]["launches"] == want,
+              f"{label}: launches {runs[label]['launches']}, expected "
+              f"{want}")
+    for label in ("train", "resume", "distill", "distill_bridge",
+                  "fast_distill"):
+        idle = [k for k in PATH_KERNELS if not runs[label]["launches"][k]]
+        check(not idle, f"{label}: no launch of {idle}")
+    log(f"  verdict: every run went through the path kernels (eval runs "
+        f"{PER_FORWARD['fps']} / {PER_FORWARD['knn']} / "
+        f"{PER_FORWARD['pool']} fps / knn / pool a forward); device and "
+        f"host eval paths agree; phase {time.monotonic() - t_phase:.1f} s")
+    deadline("workflow")
+
+    # ---------------------------------------------------------------- 23
     def timing(t, launches):
         row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
@@ -1691,7 +1988,9 @@ def main() -> int:
                 for n, v in fg_eval.items()},
             **({"c16_sites": c16_times[name]} if name in c16_times else {}),
             eval_forward=None if e is None else timing(
-                e, eval_launches[name] // N_METRIC_PAIRS)))
+                e, eval_launches[name] // N_METRIC_PAIRS),
+            workflow_launches={label: r["launches"][name]
+                               for label, r in runs.items()}))
     kernel_rows.append(dict(
         name="fps_pruned", route="cuda", **KERNEL_META["fps_pruned"],
         **timing(fp_times, kd_launches["fps_pruned"]),
@@ -1718,9 +2017,9 @@ def main() -> int:
         eval_forward={n: dict(ms=v["feature_knn_ms"],
                               sites=v["feature_sites"])
                       for n, v in fg_eval.items()})]
-    log("[22/23 kernels]")
+    log("[23/24 kernels]")
     log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
-    log(f"[23/23 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[24/24 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,12 +6,17 @@ kd_pointcloud_tpu. Plain tensor code is PyTorch; each Pallas kernel of the
 JAX package on the ported path is a hand-written CUDA kernel for Hopper
 (csrc/), built with nvcc at first use and bound with ctypes (ops/kernels.py).
 
-Slices: the teacher's eval forward (models.BidPointFlowNet,
-eval.evaluate_model), with exact kNN; its train step (train.make_train_step);
-knowledge distillation from the frozen teacher (train.make_distill_step,
-train.make_bridge_distill_step, losses.kd), with checkpoints and weight
-import (train.checkpoints, models.torch_import). attic/ holds the ports of
-the JAX package's attic kernels, which no path runs.
+Slices: every preset of models.BidPointFlowNet, with exact kNN; the
+train step (train.make_train_step); knowledge distillation from a frozen
+teacher (train.make_distill_step, make_bridge_distill_step,
+make_fast_distill_step, losses.kd), with checkpoints and weight import
+(train.checkpoints, models.torch_import); and the user's path: config and
+logging (utils), the data pipeline (data: numpy only), the six-metric eval
+sweep over a loader (eval.evaluate_model), the epoch loops
+(train.train_teacher, train.distill) and their command-line entries
+(python -m kd_pointcloud_tpu_torch.cli.<train|evaluate|distill|
+distill_bridge|fast_distill> <config>.yaml [--device cpu]). attic/ holds
+the ports of the JAX package's attic kernels, which no path runs.
 """
 
 __version__ = "0.1.0"

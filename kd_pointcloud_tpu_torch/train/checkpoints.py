@@ -51,6 +51,23 @@ def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
+def load_weights(path: str, preset: str = "teacher"
+                 ) -> Dict[str, torch.Tensor]:
+    """A model's state_dict from a reference .pth (read as the preset's
+    family: fg for fg and bifeat, vote for vote, else teacher), a JAX
+    package .msgpack, or a checkpoint of the port, bare or full (by file
+    name)."""
+    if path.endswith(".pth"):
+        from ..models import load_torch_checkpoint
+
+        family = ("fg" if preset in ("fg", "bifeat")
+                  else "vote" if preset == "vote" else "teacher")
+        return load_torch_checkpoint(path, family=family)
+    if path.endswith(".msgpack"):
+        return load_msgpack_checkpoint(path)
+    return load_checkpoint(path)["model"]
+
+
 def full_state_tree(model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer], epoch: int,
                     best_epe: float, extra: Optional[Mapping[str, Any]] = None

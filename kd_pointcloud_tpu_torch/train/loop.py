@@ -15,12 +15,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.loader import PAD_PATH
 from ..device import use_full_fp32
 from ..eval.runner import flow0_of
 from ..losses import multi_scale_loss, multi_scale_loss_per_sample
-
-# the data loader's path of a pad row (kd_pointcloud_tpu/data/loader.py)
-PAD_PATH = "<pad>"
 
 
 def supervised_loss(out, batch) -> torch.Tensor:

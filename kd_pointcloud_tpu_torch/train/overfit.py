@@ -30,6 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..losses import multi_scale_loss
+from .checkpoints import load_weights
 from .loop import epe3d_per_sample, flow0_of, make_train_step
 from .state import make_optimizer
 
@@ -104,19 +105,6 @@ def synthetic_batches(n_batches: int, batch: int, npoints: int, seed: int,
             for i in range(n_batches)]
 
 
-def load_init(path: str) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from a reference .pth, a JAX package .msgpack
-    or a port checkpoint (by file name)."""
-    from ..models import load_torch_checkpoint
-    from .checkpoints import load_checkpoint, load_msgpack_checkpoint
-
-    if path.endswith(".pth"):
-        return load_torch_checkpoint(path)
-    if path.endswith(".msgpack"):
-        return load_msgpack_checkpoint(path)
-    return load_checkpoint(path)["model"]
-
-
 def main(argv=None) -> dict:
     from ..models import PRESETS, BidPointFlowNet, tiny_config
 
@@ -143,7 +131,8 @@ def main(argv=None) -> dict:
     model = BidPointFlowNet(cfg, device=device,
                             generator=torch.Generator().manual_seed(args.seed))
     if args.init:
-        model.load_state_dict(load_init(args.init), strict=True)
+        model.load_state_dict(load_weights(args.init, args.preset),
+                              strict=True)
     if args.npz:
         batches = load_overfit_batches(args.npz, device)
     else:

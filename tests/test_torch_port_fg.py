@@ -48,7 +48,8 @@ from kd_pointcloud_tpu.models.torch_import import \
     convert_state_dict as jax_convert_state_dict
 from kd_pointcloud_tpu.nn import cross as jax_cross
 from kd_pointcloud_tpu.ops import knn_point as jax_knn_point
-from kd_pointcloud_tpu_torch.eval import evaluate_model, synthetic_pairs
+from kd_pointcloud_tpu_torch.eval import (evaluate_model, pairs_loader,
+                                          synthetic_pairs)
 from kd_pointcloud_tpu_torch.models import (BidPointFlowNet,
                                             convert_state_dict,
                                             params_from_jax, tiny_config)
@@ -426,7 +427,7 @@ def test_evaluate_model_takes_the_last_iteration():
     variables = _variables("bifeat", net, pc1, pc1, rng)
     model = BidPointFlowNet(tiny_config("bifeat"), device="cpu")
     model.load_state_dict(params_from_jax(variables), strict=True)
-    got = evaluate_model(model, pairs)
+    got = evaluate_model(model, pairs_loader(pairs), with_2d=False)
     step = jax_runner.make_eval_metrics_step(net, with_2d=False)
     rows = [np.asarray(step(variables, *(a[None] for a in pair),
                             np.zeros((1, 6), np.float32)))[0]

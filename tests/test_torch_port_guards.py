@@ -17,7 +17,9 @@ import torch
 
 import kd_pointcloud_tpu_torch
 from kd_pointcloud_tpu_torch import device as port_device
-from kd_pointcloud_tpu_torch.models import BidPointFlowNet, tiny_config
+from kd_pointcloud_tpu_torch.data import datasets
+from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
+                                            tiny_config)
 from kd_pointcloud_tpu_torch.attic import cross_pool, fps_pruned
 from kd_pointcloud_tpu_torch.ops import fps, kernels, knn, pool_fused
 from kd_pointcloud_tpu_torch.train import overfit
@@ -36,7 +38,13 @@ def _port_files():
                  "losses/multiscale.py", "losses/kd.py", "models/bridge.py",
                  "models/torch_import.py", "train/checkpoints.py",
                  "train/distill.py", "train/distill_experiment.py",
-                 "attic/fps_pruned.py", "attic/cross_pool.py"):
+                 "attic/fps_pruned.py", "attic/cross_pool.py",
+                 "utils/config.py", "utils/logging.py", "data/native_io.py",
+                 "data/transforms.py", "data/datasets.py", "data/loader.py",
+                 "data/synthetic.py", "eval/geometry.py", "eval/metrics.py",
+                 "eval/runner.py", "train/experiment.py", "cli/train.py",
+                 "cli/evaluate.py", "cli/distill.py",
+                 "cli/distill_bridge.py", "cli/fast_distill.py"):
         assert PACKAGE / name in files
     return files
 
@@ -46,6 +54,9 @@ def test_port_imports_no_jax_flax_or_jax_package(path):
     src = path.read_text()
     assert not FORBIDDEN.search(src), FORBIDDEN.search(src).group(0)
     assert "import cpp_extension" not in src
+    if path.parent.name in ("data", "utils"):
+        # loader workers fork after CUDA is up: they must not touch torch
+        assert not re.search(r"^\s*(import|from)\s+torch", src, re.M)
 
 
 def test_kernel_sources_are_plain_cuda():
@@ -318,6 +329,32 @@ def test_chip_smoke_work_counts_attic_kernels():
     ops2, bytes2 = mod.work("cross_pool", (u, v, idx, [w, w], [b, b]))
     assert ops2 - ops1 == Bp * N1 * K * (2 * C * C + 2 * C)
     assert bytes2 - bytes1 == (C * C + C) * 4
+
+
+def test_chip_smoke_workflow_runs_on_cpu(monkeypatch):
+    """The smoke run's workflow phase end to end on the CPU at tiny_config
+    and small trees: the five cli entries from the shipped YAMLs (loader
+    pools of 2 workers), the resume from the best checkpoint, evaluate, and
+    the device and host eval paths held against each other; the plain
+    versions launch no kernel."""
+    mod = _load_chip_smoke()
+    for name in ("teacher", "lighttoken_res", "bifeat", "fg"):
+        monkeypatch.setitem(PRESETS, name, tiny_config(name))
+    out = mod.workflow("cpu", 256, ft3d=dict(train=8, val=4, points=300),
+                       kitti=dict(mapped=(0, 1, 5), points=500), steps=1)
+    assert list(out["runs"]) == [
+        "train", "resume", "evaluate", "eval KITTI device",
+        "eval KITTI host", "eval FT3D val device", "eval FT3D val host",
+        "distill", "distill_bridge", "fast_distill"]
+    assert not any(any(r["launches"].values())
+                   for r in out["runs"].values())
+    assert [h["epoch"] for h in out["train"]["epochs"]] == [0, 1]
+    assert len(out["train"]["resume"]) == 1
+    assert set(out["evaluate"]["metrics"]) == {
+        "epe3d", "acc3ds", "acc3dr", "outliers", "epe2d", "acc2d", "loss"}
+    for label in ("distill", "distill_bridge", "fast_distill"):
+        assert out["distill"][label][0]["checkpoint"]
+    assert datasets.FlyingThings3DSubset.TRAIN_COUNT == 19640   # restored
 
 
 @pytest.mark.parametrize("alone", [False, True])

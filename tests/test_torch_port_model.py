@@ -19,7 +19,8 @@ from kd_pointcloud_tpu.models import PRESETS as JAX_PRESETS
 from kd_pointcloud_tpu.models import BidPointFlowNet as JaxNet
 from kd_pointcloud_tpu.models import tiny_config as jax_tiny_config
 from kd_pointcloud_tpu_torch.eval import (evaluate_3d, evaluate_3d_torch,
-                                          evaluate_model, synthetic_pairs)
+                                          evaluate_model, pairs_loader,
+                                          synthetic_pairs)
 from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                             ModelConfig, check_config,
                                             params_from_jax, tiny_config)
@@ -87,6 +88,48 @@ def test_other_outputs_match_jax(teacher, key):
                                    atol=TOL)
 
 
+def test_flows_match_jax_without_nested_fps(teacher, monkeypatch):
+    """nested_fps=False: FPS runs again at l2-l4 (128 -> 64 -> 32 -> 16 at
+    tiny_config) instead of taking prefixes of the l1 ordering; flows
+    within 1e-5 and every FPS chain equal to JAX's, on the same weights.
+    (FPS of a cloud in FPS order selects its prefix, so the chains equal
+    the nested ones: what differs is that FPS runs at each level.)"""
+    from kd_pointcloud_tpu_torch.ops import fps as fps_mod
+
+    sampled = []
+    plain = fps_mod.fps_plain
+
+    def record(xyz, npoint):
+        sampled.append((xyz.shape[0], xyz.shape[1], npoint))
+        return plain(xyz, npoint)
+    monkeypatch.setattr(fps_mod, "fps_plain", record)
+    _, _, _, variables = teacher
+    rng = np.random.RandomState(1)
+    pc1 = rng.uniform(-2, 2, (1, N, 3)).astype(np.float32)
+    pc2 = (pc1 + 0.1 * rng.standard_normal(pc1.shape)).astype(np.float32)
+    cfg = dataclasses.replace(jax_tiny_config("teacher"), knn_method="exact",
+                              nested_fps=False)
+    out = jax.device_get(jax.jit(lambda v, a, b: JaxNet(cfg).apply(
+        v, a, b, a, b, train=False))(variables, pc1, pc2))
+    model = BidPointFlowNet(dataclasses.replace(tiny_config("teacher"),
+                                                nested_fps=False),
+                            device="cpu")
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.eval()
+    with torch.no_grad():
+        mine = model(*(torch.from_numpy(a) for a in (pc1, pc2, pc1, pc2)))
+    for lvl in range(4):
+        np.testing.assert_allclose(mine["flows"][lvl].numpy(),
+                                   np.asarray(out["flows"][lvl]), rtol=0,
+                                   atol=TOL)
+    for key in ("fps_idx1", "fps_idx2"):
+        for want, got in zip(out[key], mine[key]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # both clouds in one call a level, l1 to l4
+    assert sampled == [(2, 256, 128), (2, 128, 64), (2, 64, 32),
+                       (2, 32, 16)]
+
+
 def _metric_pred_gt(seed):
     """Predictions whose errors straddle every metric threshold (0.05,
     0.1, 0.3 m and 5 / 10 % relative)."""
@@ -101,7 +144,7 @@ def test_evaluate_model_matches_numpy_metrics(teacher):
     predictions: numpy evaluate_3d per pair and the batched evaluate_3d_jax."""
     _, _, model, _ = teacher
     pairs = synthetic_pairs(2, npoints=N, seed=3)
-    got = evaluate_model(model, pairs)
+    got = evaluate_model(model, pairs_loader(pairs))
     got = [got[k] for k in ("epe3d", "acc3ds", "acc3dr", "outliers")]
     with torch.no_grad():
         preds = np.stack([model(*(torch.from_numpy(a)[None]

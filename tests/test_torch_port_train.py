@@ -266,10 +266,11 @@ def test_eval_step_matches_jax(jax_teacher):
     np.testing.assert_allclose(p_epe.numpy(), epe, rtol=1e-5)
     np.testing.assert_allclose(p_loss.numpy(), loss, rtol=1e-5)
     np.testing.assert_allclose(p_flow0.numpy(), flow0, rtol=0, atol=1e-5)
-    rows = make_eval_metrics_step(model)(tb["pos1"], tb["pos2"], tb["norm1"],
-                                         tb["norm2"], tb["flow"])
-    assert rows.shape == (B, 5)
-    np.testing.assert_allclose(rows[:, 4].numpy(), loss, rtol=1e-5)
+    rows = make_eval_metrics_step(model, with_2d=False)(
+        tb["pos1"], tb["pos2"], tb["norm1"], tb["norm2"], tb["flow"],
+        torch.zeros(B, 6))
+    assert rows.shape == (B, 7)
+    np.testing.assert_allclose(rows[:, 6].numpy(), loss, rtol=1e-5)
     np.testing.assert_allclose(rows[:, 0].numpy(), epe, rtol=1e-5)
 
 
