@@ -16,8 +16,11 @@ forwards (bifeat, fg) and the fast KD step bifeat -> fg
 (configs/fast_distill.yaml), through train.make_fast_distill_step; and
 the no_cross and vote eval forwards; then the user's path, the cli
 entries from a YAML through the data pipeline and the epoch loops to the
-six-metric eval and the checkpoint -- and holds each hand-written kernel
-against its plain PyTorch version. Phases, each printing flushed lines as
+six-metric eval and the checkpoint; then the tooling around the model: the
+blocked-FPS relaxation (fps_blocks), the self-supervised loss's backward
+through a student, the profile entry, a trace, and raw frames through the
+preprocessors to the eval -- and holds each hand-written kernel against
+its plain PyTorch version. Phases, each printing flushed lines as
 it goes:
 
   1. device: name, count, power limit (nvidia-smi), torch and CUDA versions;
@@ -150,13 +153,35 @@ it goes:
      distill_kd (batch 8), distill_bridge (both from the trained teacher)
      and fast_distill, 1 epoch of 2 steps each, with the checkpoint
      written; every run's launches counted from 0;
- 23. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
+ 23. the tooling (tooling): the FPS kernel bit-identical to fps_plain at
+     the blocked shapes of fps_blocks=8 (l1's 8192 -> 2048 as 8 blocks of
+     1024 -> 256: 16 clouds at batch 1, 128 at the KD step's batch 8), with
+     its plan, and timed beside the exact site; the teacher's eval forward
+     with fps_blocks=8 through evaluate_model (launches FPS 1, kNN 19, pool
+     12) against its plain-version twin as in phase 4, timed in turns with
+     the exact teacher; the self-supervised loss
+     (losses.multi_scale_chamfer_smooth_curvature) and its backward through
+     a `student` train forward at batch 2 (launches FPS 1, kNN 35, pool 12,
+     pool_bwd 12) against the plain versions (loss within 1e-5 relative,
+     gradient leaves within GRAD_TOL), its kNN kernel bit-identical to
+     knn_plain at each of its 16 sites (k = 10, 9, 5 at 8192^2, 2048^2,
+     512^2, 256^2) and timed there; cli.profile for teacher, student and
+     fg; the operation count of a tiny_config teacher equal on the CPU and
+     the card (tiny_config's feat_nei raised to 16, a k the kNN kernel
+     takes); a perf.trace of one teacher forward holding one record of
+     each of its fps, knn and pool launches (beside a bare profiler
+     session's and an empty warm-up step's lost records); seeded raw FT3D (540 x 960) and KITTI
+     (375 x 1242) frames through the preprocessors' entries (PNGs the
+     bundled codec reads: no PIL), then evaluate_model of a seeded teacher
+     on each result (the six metrics: a sanity line);
+ 24. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
      for the kernels of the paths, the train step's, the eval forward's,
      the student KD step's and the fast KD step's beside them, the pool's
-     C = 16 sites, and each workflow run's launches; the attic kernels at
-     their phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step
-     and FG eval pair);
- 24. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+     C = 16 sites, each workflow run's launches, and the tooling phase's
+     blocked FPS and self-supervised kNN sites; the attic kernels at their
+     phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step and
+     FG eval pair);
+ 25. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -168,7 +193,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import faulthandler
+import importlib.util
 import json
 import math
 import re
@@ -176,6 +203,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -221,6 +249,16 @@ WORKFLOW_FT3D = dict(train=16, val=4, points=10240)
 WORKFLOW_KITTI = dict(mapped=(0, 1, 5), points=20480)
 WORKFLOW_STEPS = 2
 WORKFLOW_KD_BATCH = 8
+# the tooling phase: fps_blocks=8 (l1's FPS as 8 blocks of 1024 -> 256),
+# the self-supervised loss through a student at batch 2 (its chamfer holds
+# a 2 x 8192 x 8192 distance matrix), the profile entry's presets, and raw
+# frames at the datasets' sizes (FT3D 540 x 960, KITTI 375 x 1242)
+FPS_BLOCKS = 8
+SELFSUP_BATCH = 2
+SELFSUP_KNN = 16            # 4 searches a level (k = 10, 10, 9, 5) x 4
+PROFILE_PRESETS = ("teacher", "student", "fg")
+RAW_FT3D = dict(train=1, val=2, height=540, width=960)
+RAW_KITTI = dict(frames=(0, 1, 2), height=375, width=1242)
 # device against host eval path: the same forward, metrics in torch on the
 # card against numpy on the host (float32 sums in another order)
 EVAL_PATHS_RTOL = 1e-5
@@ -242,6 +280,9 @@ PER_FORWARD = {"fps": 1, "knn": 19, "pool": 12, "pool_bwd": 0,
 PER_TRAIN_STEP = dict(PER_FORWARD, pool_bwd=12)
 PER_KD_STEP = {"fps": 2, "knn": 38, "pool": 24, "pool_bwd": 12,
                "fps_pruned": 0, "cross_pool": 0}
+# a student forward in train mode, the self-supervised loss on its four
+# levels and the backward
+PER_SELFSUP_STEP = dict(PER_TRAIN_STEP, knn=PER_FORWARD["knn"] + SELFSUP_KNN)
 # launches by width of a student KD step at C = 16: the forward and the
 # backward of the l0 cross layer's three pools (every other site is wider)
 STUDENT_C16 = {"pool C=16": 3, "pool_bwd C=16": 3}
@@ -319,17 +360,17 @@ def ptxas_summary(text: str):
 
 def profile_device(run, n: int, what: str) -> None:
     """Where the time goes on the card: run(i) for i < n under
-    torch.profiler; device time a {what} by kernel name (the port's own
+    torch.profiler (perf.recording, after its warm-up step); device time a {what} by kernel name (the port's own
     kernels marked *), launches a {what}, and the device's busy share of the
     profiled wall (one stream, so kernels do not overlap). The profiler's
     own host cost lowers that share."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    from kd_pointcloud_tpu_torch.perf import recording
+
+    with recording([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for i in range(n):
             run(i)
@@ -359,69 +400,16 @@ def profile_device(run, n: int, what: str) -> None:
         log(f"   {mark} {dev[key]:8.3f} ms {calls[key]:6.1f}x  {key[:90]}")
 
 
-def work(name: str, args):
-    """(operations, bytes) the function needs on these inputs: each input
-    read once, each output written once."""
-    if name == "fps":
-        xyz, m = args
-        B, N, _ = xyz.shape
-        # per point and round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-        return B * (m - 1) * N * 10, B * N * 12 + B * m * 4
-    if name == "knn":
-        k, xyz, q = args
-        B, S, N = q.shape[0], q.shape[1], xyz.shape[1]
-        # per pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add, 1 compare
-        return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
-    if name == "fps_pruned":
-        # dirty: the sub-block updates this run's data needed (all clouds);
-        # per round and sub-block the sphere test (3 sub, 5 mul, 4 add,
-        # sqrt, compare) and the fold's compare, per point of an updated
-        # sub-block FPS's 10
-        xyz, m, dirty = args
-        B, N, _ = xyz.shape
-        return (B * (m - 1) * (N // 128) * 15 + dirty * 128 * 10,
-                B * N * 12 + B * m * 4)
-    if name == "cross_pool":
-        # per (query, neighbour): C add + C leaky, L x (C x C multiply-add,
-        # C bias, C leaky), C max; reads u, v, idx, L weights and biases
-        u, v, idx, ws = args[:4]
-        B, N2, C = u.shape
-        N1, K = idx.shape[1:]
-        L = len(ws)
-        return (B * N1 * K * (3 * C + L * (2 * C * C + 2 * C)),
-                (B * N2 * C + 2 * B * N1 * C + L * (C * C + C) + B * N1 * K)
-                * 4)
-    u, idx, v, w, b = args[:5]
-    B, N2, C = u.shape
-    N1, K = idx.shape[1:]
-    if name == "pool":
-        # per (query, neighbour): C add + C leaky, C x C multiply-add,
-        # C bias + C leaky + C max
-        return (B * N1 * K * (2 * C * C + 5 * C),
-                (B * N2 * C + 2 * B * N1 * C + C * C + C + B * N1 * K) * 4)
-    # pool_bwd. Dense, per (query, neighbour): the forward's 2 C^2 + 5 C
-    # again (recomputed: the forward saves only its inputs), the max mask
-    # (C compares, C counts) and d_g = d_h0 leaky', d_v, d_u (3 C). d_p is
-    # nonzero only in the mask -- one neighbour a (query, output channel),
-    # more only where maxima tie exactly -- so d_h0 = d_p w, d_w += d_p^T h0
-    # (2 C each) and d_bias (1) count at the mask's entries on these inputs.
-    # Reads u, idx, v, w, bias, ct, writes d_u, d_v, d_w, d_bias.
-    return (B * N1 * K * (2 * C * C + 10 * C) + mask_entries(*args[:5])
-            * (4 * C + 1),
-            (2 * B * N2 * C + B * N1 * K + 3 * B * N1 * C + 2 * C * C
-             + 2 * C) * 4)
 
-
-def mask_entries(u, idx, v, weight, bias) -> int:
-    """The (query, neighbour, output channel) entries where leaky(p) is its
-    query's max over the neighbours: B N1 C without ties."""
-    import torch
-    from kd_pointcloud_tpu_torch.ops import group_points, leaky
-
-    with torch.no_grad():
-        p = leaky(torch.nn.functional.linear(
-            leaky(group_points(u, idx) + v[:, :, None, :]), weight, bias))
-        return int((p == p.amax(dim=2, keepdim=True)).sum())
+def unrecorded_launches(events) -> int:
+    """Kernel launches (runtime or driver calls) of a Chrome trace whose
+    kernel has no record there."""
+    kernel = {e.get("args", {}).get("correlation") for e in events
+              if e.get("cat") == "kernel"}
+    return sum(1 for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "LaunchKernel" in str(e.get("name"))
+               and e.get("args", {}).get("correlation") not in kernel)
 
 
 def pool_bwd_plain(u, idx, v, weight, bias, ct):
@@ -557,8 +545,6 @@ def workflow(device: str, n_points: int = N_POINTS, ft3d=None, kitti=None,
 
     Every run's kernel launches are counted from 0 (set just before it,
     read just after). Returns what it measured; raises on a fault."""
-    import tempfile
-
     import torch
     import yaml
 
@@ -752,6 +738,94 @@ def workflow(device: str, n_points: int = N_POINTS, ft3d=None, kitti=None,
     return out
 
 
+def preprocess_eval(device: str, n_points: int = N_POINTS, ft3d=None,
+                    kitti=None, workers: int = 2) -> dict:
+    """Raw frames to the eval: seeded raw FT3D-subset and KITTI frames
+    (data.synthetic; ft3d / kitti give their counts and sizes) through the
+    preprocessors' entries (data.preprocess.ft3d with the near-points
+    filter, data.preprocess.kitti), into the trees the datasets read, then
+    evaluate_model of a seeded teacher at batch 1 on each tree (FT3D val,
+    KITTI with its calibration). Every raw PNG is one the bundled codec
+    reads, so no step needs PIL. Each eval's launches are counted from 0.
+    Returns what it measured; raises on a fault."""
+    import numpy as np
+    import torch
+
+    from kd_pointcloud_tpu_torch.data import (KITTI, DataLoader,
+                                              FlyingThings3DSubset,
+                                              ProcessData, synthetic)
+    from kd_pointcloud_tpu_torch.data.preprocess import ft3d as ft3d_pre
+    from kd_pointcloud_tpu_torch.data.preprocess import kitti as kitti_pre
+    from kd_pointcloud_tpu_torch.data.preprocess import png16
+    from kd_pointcloud_tpu_torch.eval import evaluate_model
+    from kd_pointcloud_tpu_torch.models import PRESETS, BidPointFlowNet
+    from kd_pointcloud_tpu_torch.ops import kernels
+
+    ft3d = ft3d or RAW_FT3D
+    kitti = kitti or RAW_KITTI
+    base = Path(tempfile.mkdtemp(prefix="kdpc_preprocess_"))
+    out = dict(seconds={}, scenes={}, metrics={}, launches={})
+    try:
+        t = time.perf_counter()
+        raw_ft = synthetic.write_raw_ft3d(
+            str(base / "raw_ft3d"), ft3d["train"], ft3d["val"],
+            ft3d["height"], ft3d["width"], seed=SEED)
+        raw_ki, calib = synthetic.write_raw_kitti(
+            str(base / "raw_kitti"), kitti["frames"], kitti["height"],
+            kitti["width"], seed=SEED)
+        out["seconds"]["raw frames"] = time.perf_counter() - t
+        pngs = sorted(base.rglob("*.png"))
+        check(pngs and all(png16.decodable(str(f)) for f in pngs),
+              "a raw PNG the codec does not read")
+        ft_root = base / "ft3d"
+        ki_root = base / "kitti"
+        for label, entry, argv in (
+                ("ft3d", ft3d_pre, ["--raw_data_path", raw_ft,
+                                    "--save_path", str(
+                                        ft_root / FlyingThings3DSubset.DIRNAME),
+                                    "--only_save_near_pts"]),
+                ("kitti", kitti_pre, [raw_ki, str(ki_root / "kitti_processed"),
+                                      "--calib_root", calib])):
+            t = time.perf_counter()
+            entry.main(argv + ["--workers", str(workers)])
+            out["seconds"][f"preprocess {label}"] = time.perf_counter() - t
+        mapped = set(kitti["frames"])
+        (ki_root / "KITTI_mapping.txt").write_text("".join(
+            ("mapped" if i in mapped else "") + "\n" for i in range(200)))
+
+        model = BidPointFlowNet(PRESETS["teacher"], device=device,
+                                generator=torch.Generator().manual_seed(SEED))
+        transform = ProcessData(num_points=n_points)
+        for label, ds, calib_dir in (
+                ("FT3D val", FlyingThings3DSubset(
+                    False, transform, str(ft_root), strict_counts=False,
+                    num_points=n_points), None),
+                ("KITTI", KITTI(False, transform, str(ki_root),
+                                strict_counts=False, num_points=n_points),
+                 calib)):
+            out["scenes"][label] = [int(np.load(Path(d) / "pc1.npy",
+                                                mmap_mode="r").shape[0])
+                                    for d in ds.samples]
+            loader = DataLoader(ds, 1, shuffle=False, pad_last=True,
+                                num_workers=0)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            metrics = evaluate_model(model, loader, calib_dir=calib_dir)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out["seconds"][f"eval {label}"] = time.perf_counter() - t
+            out["launches"][label] = dict(kernels.LAUNCHES)
+            out["metrics"][label] = metrics
+            check(len(metrics) == 7 and all(math.isfinite(v)
+                                            for v in metrics.values()),
+                  f"{label}: metrics {metrics}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     t0 = time.monotonic()
     import torch
@@ -792,6 +866,15 @@ def main() -> int:
                                                restore_train_state,
                                                save_checkpoint)
     from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
+    from kd_pointcloud_tpu_torch import losses as losses_mod
+    from kd_pointcloud_tpu_torch.cli import profile as profile_cli
+    from kd_pointcloud_tpu_torch.models import tiny_config
+    from kd_pointcloud_tpu_torch.perf import annotate, flop_count
+    from kd_pointcloud_tpu_torch.perf import trace as perf_trace
+    from kd_pointcloud_tpu_torch.perf.trace import (TRACE_FILE,
+                                                   WARM_UP_KERNELS,
+                                                   kernel_records)
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     # the watchdog ends the process even if a kernel hangs the main thread
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
@@ -805,7 +888,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/24 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/25 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -815,7 +898,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/24 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/25 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -826,7 +909,7 @@ def main() -> int:
     # where the model reaches each kernel: swapped for a recorder or for
     # the plain version (the pool's point carries its backward kernel too)
     points = {"fps": (fps_mod, "_fps_cuda", fps_mod.fps_plain),
-              "knn": (knn_mod, "_knn_cuda", knn_mod.knn_plain),
+              "knn": (knn_mod, "_knn_card", knn_mod.knn_plain),
               "pool": (pool_mod, "_pool_card", pool_mod.pool_plain)}
     originals = {n: getattr(m, a) for n, (m, a, _) in points.items()}
     cuda_fns = {"fps": fps_mod._fps_cuda, "knn": knn_mod._knn_cuda,
@@ -905,7 +988,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/24 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/25 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -1140,7 +1223,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/24 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/25 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -1175,7 +1258,8 @@ def main() -> int:
         for i, args in enumerate(sites):
             ms = cuda_ms(lambda: cuda_fns[name](*args), REPS, 3)
             pms = cuda_ms(lambda: plain_fns[name](*args), PLAIN_REPS, 1)
-            ops, nbytes = work(name, args) if works is None else works[i]
+            ops, nbytes = (kernels.kernel_work(name, *args)
+                           if works is None else works[i])
             ops_ms = ops / PEAK_FP32_FLOPS * 1e3
             bytes_ms = nbytes / PEAK_BYTES_S * 1e3
             tot["ms"] += ms
@@ -1193,7 +1277,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/24 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/25 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -1240,7 +1324,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/24 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/25 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -1267,7 +1351,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/24 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/25 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -1347,7 +1431,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/24 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/25 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -1363,7 +1447,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/24 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/25 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1387,7 +1471,8 @@ def main() -> int:
             row1 = cuda_ms(lambda: cuda_fns["fps"](xyz, m), REPS, 3)
             attic["fps_pruned"][key] = dict(
                 ms=ms, fps_kernel_ms=row1, updates_share=share,
-                work=work("fps_pruned", (xyz, m, int(dirty.sum()))))
+                work=kernels.kernel_work("fps_pruned", xyz, m,
+                                         int(dirty.sum())))
             log(f"    {ms:.4f} ms, the FPS kernel {row1:.4f} ms")
         results["fps_pruned"]["match"] = (
             "bit-identical to fps_plain and the FPS kernel at B = 2, 6, 16 "
@@ -1462,7 +1547,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/24 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/25 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1494,7 +1579,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/24 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/25 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1530,7 +1615,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/24 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/25 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1572,7 +1657,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/24 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/25 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1599,7 +1684,7 @@ def main() -> int:
     c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
     check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
           f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
-    log(f"[14/24 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+    log(f"[14/25 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
     for line in ptxas_summary(info["log"]):
@@ -1634,7 +1719,7 @@ def main() -> int:
     loss_k = float(s_step(kd_batch))
     s_launches = dict(kernels.LAUNCHES)
     s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
-    log(f"[15/24 student KD path] one distill step, teacher -> student, "
+    log(f"[15/25 student KD path] one distill step, teacher -> student, "
         f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
         f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
     check(s_launches == PER_KD_STEP,
@@ -1672,7 +1757,7 @@ def main() -> int:
     deadline("student KD path")
 
     # ---------------------------------------------------------------- 16
-    time_steps(s_step, kd_batch, "16/24 student KD timing", "KD step",
+    time_steps(s_step, kd_batch, "16/25 student KD timing", "KD step",
                KD_BATCH)
     s_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(s_model).train()
@@ -1711,7 +1796,7 @@ def main() -> int:
     deadline("student KD timing")
 
     # ---------------------------------------------------------------- 17
-    log(f"[17/24 student presets' eval forwards] batch 1, {N_POINTS} "
+    log(f"[17/25 student presets' eval forwards] batch 1, {N_POINTS} "
         f"points, through evaluate_model, each against its plain versions; "
         f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
     teacher_knn = sorted(site("knn", args) for args in calls["knn"])
@@ -1760,7 +1845,7 @@ def main() -> int:
         deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 18
-    log(f"[18/24 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
+    log(f"[18/25 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
         f"{N_POINTS} points, through evaluate_model, each against its plain "
         f"versions and timed over {N_TIMED_PAIRS} pairs")
     fg_eval = {}
@@ -1832,7 +1917,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(f_step(kd_batch))
     f_launches = dict(kernels.LAUNCHES)
-    log(f"[19/24 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
+    log(f"[19/25 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
         f"-> {FAST_STUDENT}, batch {KD_BATCH}, {N_POINTS} points, "
         f"att_iter_loss {FAST_KD_ARGS}: launches {f_launches}")
     check(f_launches == per_fast,
@@ -1863,7 +1948,7 @@ def main() -> int:
     deadline("fast KD path")
 
     # ---------------------------------------------------------------- 20
-    time_steps(f_step, kd_batch, "20/24 fast KD timing", "fast KD step",
+    time_steps(f_step, kd_batch, "20/25 fast KD timing", "fast KD step",
                KD_BATCH)
     f_calls, f_feat = {n: [] for n in points}, []
     rec_student = copy.deepcopy(f_student).train()
@@ -1910,7 +1995,7 @@ def main() -> int:
     deadline("fast KD timing")
 
     # ---------------------------------------------------------------- 21
-    log(f"[21/24 no_cross and vote eval forwards] batch 1, {N_POINTS} "
+    log(f"[21/25 no_cross and vote eval forwards] batch 1, {N_POINTS} "
         "points, through evaluate_model, each against its plain versions")
     for name in ABLATION_PRESETS:
         amodel = BidPointFlowNet(
@@ -1933,7 +2018,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 22
     t_phase = time.monotonic()
-    log(f"[22/24 workflow] the cli entries (train with resume, evaluate, "
+    log(f"[22/25 workflow] the cli entries (train with resume, evaluate, "
         f"the device and host eval paths, distill, distill_bridge, "
         f"fast_distill) at {N_POINTS} points and full width, on seeded "
         f"trees")
@@ -1963,6 +2048,249 @@ def main() -> int:
     deadline("workflow")
 
     # ---------------------------------------------------------------- 23
+    t_phase = time.monotonic()
+    log(f"[23/25 tooling] fps_blocks={FPS_BLOCKS}, the self-supervised "
+        f"loss through a student, the profile entry, a trace, raw frames to "
+        f"the eval; {N_POINTS} points, full width")
+    # blocked FPS: l1's 8192 -> 2048 as blocks of 1024 -> 256, the stacked
+    # clouds of an eval forward (2) and of a KD step's forward (16)
+    m1 = PRESETS["teacher"].npoints[1]
+    blocked_sites = []
+    for stacked in (calls["fps"][0][0],
+                    torch.cat([kd_batch["pos1"], kd_batch["pos2"]])):
+        blocked_sites.append((stacked.reshape(
+            stacked.shape[0] * FPS_BLOCKS, N_POINTS // FPS_BLOCKS, 3),
+            m1 // FPS_BLOCKS))
+        fps_identical(blocked_sites[-1], f"fps_blocks={FPS_BLOCKS} ",
+                      every_g=True)
+    with torch.inference_mode():
+        fps_blocked_times = time_sites("fps", blocked_sites)
+        fps_blocked_times["chain_ms"] = sum(
+            cuda_ms(lambda: fps_skeleton(xyz, m_, fps_mod.fps_plan(
+                xyz.shape[0], xyz.shape[1], fps_mod.card_clusters)), REPS, 3)
+            for xyz, m_ in blocked_sites)
+    log(f"  fps at l1 a pair: blocked {fps_blocked_times['sites'][0]['ms']:.4f}"
+        f" ms, exact {eval_times['fps']['ms']:.4f} ms (phase 5); the chain "
+        f"(rounds without their distance pass) at both blocked sites "
+        f"{fps_blocked_times['chain_ms']:.4f} ms")
+
+    b_model = BidPointFlowNet(
+        dataclasses.replace(PRESETS["teacher"], fps_blocks=FPS_BLOCKS),
+        device="cuda", generator=torch.Generator().manual_seed(SEED))
+    kernels.reset_launches()
+    metrics = evaluate_model(b_model, pairs_loader(pairs[:1]), with_2d=False)
+    torch.cuda.synchronize()
+    b_launches = dict(kernels.LAUNCHES)
+    check(b_launches == PER_FORWARD,
+          f"fps_blocks={FPS_BLOCKS}: launches {b_launches}")
+    check(all(v == v and abs(v) < 1e6 for v in metrics.values()),
+          f"fps_blocks={FPS_BLOCKS}: metrics not finite: {metrics}")
+    b_calls = {n: [] for n in points}
+    with swapped(recorder(b_calls)), torch.inference_mode():
+        b_model(*dev_pairs[0][:4])
+    b_shapes = [tuple(a[0].shape) + (a[1],) for a in b_calls["fps"]]
+    check(b_shapes == [(2 * FPS_BLOCKS, N_POINTS // FPS_BLOCKS, 3,
+                        m1 // FPS_BLOCKS)],
+          f"fps_blocks={FPS_BLOCKS}: FPS calls {b_shapes}")
+    log(f"  teacher, fps_blocks={FPS_BLOCKS}: launches a forward "
+        f"{b_launches}; its FPS call {b_shapes[0]}")
+    hold_flows(b_model, f"fps_blocks={FPS_BLOCKS} ")
+    e_model = BidPointFlowNet(PRESETS["teacher"], device="cuda",
+                              generator=torch.Generator().manual_seed(SEED))
+    fwds = {"exact": make_eval_forward(e_model),
+            "blocked": make_eval_forward(b_model)}
+    for fwd in fwds.values():
+        fwd(*dev_pairs[N_METRIC_PAIRS][:4])
+    torch.cuda.synchronize()
+    per_pair = {k: [] for k in fwds}
+    for i, p_ in enumerate(timed):
+        for key in (("exact", "blocked") if i % 2 == 0
+                    else ("blocked", "exact")):
+            t = time.perf_counter()
+            fwds[key](*p_[:4])
+            torch.cuda.synchronize()
+            per_pair[key].append((time.perf_counter() - t) * 1e3)
+    blocked_fwd = {k: dict(median_ms=statistics.median(v),
+                           mean_ms=statistics.fmean(v))
+                   for k, v in per_pair.items()}
+    log(f"  teacher eval forward in turns over {len(timed)} pairs: "
+        + ", ".join(f"{k} {v['median_ms']:.3f} ms a pair median, "
+                    f"{v['mean_ms']:.3f} mean" for k, v in
+                    blocked_fwd.items()))
+    del b_model, b_calls
+    deadline("blocked FPS")
+
+    # the self-supervised loss and its backward through a student forward
+    ss_batch = synthetic_batches(1, SELFSUP_BATCH, N_POINTS, SEED + 5,
+                                 "cuda")[0]
+    ss_model = BidPointFlowNet(
+        PRESETS["student"], device="cuda",
+        generator=torch.Generator().manual_seed(STUDENT_SEED))
+    ss_plain = copy.deepcopy(ss_model)
+
+    def selfsup_backward(model_):
+        model_.train()
+        model_.zero_grad(set_to_none=True)
+        out_ = model_(ss_batch["pos1"], ss_batch["pos2"], ss_batch["norm1"],
+                      ss_batch["norm2"])
+        parts = losses_mod.multi_scale_chamfer_smooth_curvature(
+            out_["pc1"], out_["pc2"], out_["flows"])
+        parts[0].backward()
+        return [float(v.detach()) for v in parts]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    ss_k = selfsup_backward(ss_model)
+    ss_s = time.perf_counter() - t
+    ss_launches = dict(kernels.LAUNCHES)
+    log(f"  self-supervised loss, student, batch {SELFSUP_BATCH}: forward, "
+        f"loss and backward through the kernels {ss_s * 1e3:.3f} ms (first "
+        f"use), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"MiB; launches {ss_launches}")
+    check(ss_launches == PER_SELFSUP_STEP,
+          f"launches {ss_launches}, expected {PER_SELFSUP_STEP}")
+    with swapped(lambda n, entry, plain: plain):
+        ss_p = selfsup_backward(ss_plain)
+    check(kernels.LAUNCHES == ss_launches,
+          "the plain self-supervised backward launched a kernel")
+    log("  total, chamfer, curvature, smoothness: kernels "
+        + " ".join(f"{v:.9g}" for v in ss_k) + "; plain "
+        + " ".join(f"{v:.9g}" for v in ss_p))
+    for name, a_, b_ in zip(("total", "chamfer", "curvature", "smoothness"),
+                            ss_k, ss_p):
+        check(abs(a_ - b_) <= 1e-5 * abs(b_), f"self-supervised {name}: "
+              f"{a_} kernels, {b_} plain")
+    worst, leaf, median, n_leaves, zero_leaves, top = compare_grads(
+        ss_model, ss_plain)
+    log(f"  gradients: {n_leaves} leaves, error / max|plain| worst "
+        f"{worst:.3g} ({leaf}), median {median:.3g} (bound {GRAD_TOL}); "
+        f"{zero_leaves} zero-gradient leaves below 1e-5 of the largest "
+        f"gradient {top:.3g}")
+    bn_err = compare_stats(ss_model, ss_plain)
+    check(bn_err <= 1e-5, f"BatchNorm statistics differ: {bn_err}")
+    ss_calls = {n: [] for n in points}
+    with torch.no_grad():
+        out = ss_model(ss_batch["pos1"], ss_batch["pos2"], ss_batch["norm1"],
+                       ss_batch["norm2"])
+        with swapped(recorder(ss_calls)):
+            losses_mod.multi_scale_chamfer_smooth_curvature(
+                out["pc1"], out["pc2"], out["flows"])
+    del out
+    check(len(ss_calls["knn"]) == SELFSUP_KNN and not ss_calls["fps"]
+          and not ss_calls["pool"], "the loss's kernel sites "
+          f"{ {n: len(c) for n, c in ss_calls.items()} }")
+    for args in ss_calls["knn"]:
+        knn_identical(args)
+    with torch.inference_mode():
+        ss_knn_times = time_sites("knn", ss_calls["knn"])
+    by_k = {}
+    for k_ in sorted({a[0] for a in ss_calls["knn"]}):
+        rows = [r for r in ss_knn_times["sites"]
+                if r["site"].startswith(f"k={k_} ")]
+        ops_ms = sum(r["ops_ms"] for r in rows)
+        bytes_ms = sum(r["bytes_ms"] for r in rows)
+        by_k[f"k={k_}"] = dict(
+            launches=len(rows), ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        log(f"  knn at the loss's k={k_} sites: " + ", ".join(
+            f"{key} {val:.4f}" if isinstance(val, float) else
+            f"{key} {val}" for key, val in by_k[f"k={k_}"].items()))
+    ss_knn_times["by_k"] = by_k
+    results["knn"]["match"] += ("; k = 5, 9, 10 at the self-supervised "
+                                "loss's 16 sites")
+    del ss_model, ss_plain, ss_calls, ss_batch
+    deadline("self-supervised loss")
+
+    # the profile entry, operation counts on both devices, a trace
+    prof = profile_cli.main(list(PROFILE_PRESETS))
+    for name, st in prof.items():
+        want = forward_launches(PRESETS[name])
+        got = {n: v["calls"] for n, v in st["by_kernel"].items()}
+        check(got == {n: c for n, c in want.items() if c},
+              f"profile {name}: kernel calls {got}, expected {want}")
+        log(f"  profile {name}: params {st['params']}, operations "
+            f"{st['flops']} (dense {st['dense_flops']}, kernels "
+            f"{st['kernel_flops']}, kernel bytes {st['kernel_bytes']}), "
+            f"{st['latency_ms']:.3f} ms a pair, {st['pairs_per_sec']:.3f} "
+            f"pairs/s")
+    # tiny_config's feat_nei 8 raised to 16: the kernel's k are KERNEL_K
+    tiny = BidPointFlowNet(
+        dataclasses.replace(tiny_config("teacher"), feat_nei=16),
+        device="cpu", generator=torch.Generator().manual_seed(SEED))
+    tiny_in = [torch.from_numpy(a)[None]
+               for a in synthetic_pairs(1, 256, seed=SEED)[0][:4]]
+    count_cpu = flop_count(make_eval_forward(tiny), *tiny_in)
+    count_card = flop_count(make_eval_forward(copy.deepcopy(tiny).cuda()),
+                            *(a.cuda() for a in tiny_in))
+    log(f"  operations of a tiny_config teacher forward: cpu "
+        f"{count_cpu['flops']} (dense {count_cpu['dense_flops']}, kernels "
+        f"{count_cpu['kernel_flops']}), cuda {count_card['flops']} (dense "
+        f"{count_card['dense_flops']}, kernels {count_card['kernel_flops']})")
+    check(count_cpu == count_card, "the operation count depends on the "
+          f"device: cpu {count_cpu}, cuda {count_card}")
+    # one forward under a bare torch.profiler session, under one whose
+    # warm-up step is empty, and under perf.trace, which records after a
+    # warm-up step of WARM_UP_KERNELS kernels and raises if it lost a
+    # record of a port kernel
+    want = {n: PER_FORWARD[n] for n in ("fps", "knn", "pool")}
+    with tempfile.TemporaryDirectory(prefix="kdpc_trace_") as tdir:
+        bare = {}
+        for label, step in (("a bare session", False),
+                            ("an empty warm-up step", True)):
+            kw = (dict(schedule=schedule(wait=0, warmup=1, active=1))
+                  if step else {})
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA], **kw) as prof:
+                if step:
+                    prof.step()
+                fwds["exact"](*dev_pairs[0][:4])
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(Path(tdir) / "bare.json"))
+            bare[label] = json.loads((Path(tdir) / "bare.json").read_text(
+                ))["traceEvents"]
+        with perf_trace(tdir):
+            with annotate("teacher eval forward"):
+                fwds["exact"](*dev_pairs[0][:4])
+        events = json.loads((Path(tdir) / TRACE_FILE).read_text())[
+            "traceEvents"]
+    traced = kernel_records(events)
+    for label, ev in bare.items():
+        log(f"  {label} of one teacher forward: {unrecorded_launches(ev)} "
+            f"launches without a kernel record; the port's kernels "
+            f"{kernel_records(ev)}")
+    log(f"  perf.trace ({WARM_UP_KERNELS} warm-up kernels) of one teacher "
+        f"forward: {unrecorded_launches(events)} launches without a kernel "
+        f"record; the port's kernels {traced} (launched {want}); "
+        f"annotation "
+        f"{'teacher eval forward' in {e.get('name') for e in events}}")
+    check(traced == want and not unrecorded_launches(events),
+          f"the trace of one forward holds {traced}")
+    del fwds, e_model, tiny
+    deadline("profile and trace")
+
+    # raw frames through the preprocessors to the eval
+    pre = preprocess_eval("cuda")
+    for label, n in pre["scenes"].items():
+        want = {k: PER_FORWARD[k] * len(n) for k in PER_FORWARD}
+        check(pre["launches"][label] == want,
+              f"{label}: launches {pre['launches'][label]}, expected {want}")
+        log(f"  {label}: {len(n)} preprocessed scenes of {n} points; eval "
+            + ", ".join(f"{k} {v:.6f}" for k, v in
+                        pre["metrics"][label].items())
+            + f" (random weights: a sanity line); launches "
+            f"{pre['launches'][label]}")
+    log("  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  pre["seconds"].items())
+        + f"; Pillow installed: {importlib.util.find_spec('PIL') is not None}"
+        f", imported: {'PIL' in sys.modules}")
+    log(f"  phase {time.monotonic() - t_phase:.1f} s")
+    deadline("tooling")
+
+    # ---------------------------------------------------------------- 24
     def timing(t, launches):
         row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
@@ -1990,7 +2318,17 @@ def main() -> int:
             eval_forward=None if e is None else timing(
                 e, eval_launches[name] // N_METRIC_PAIRS),
             workflow_launches={label: r["launches"][name]
-                               for label, r in runs.items()}))
+                               for label, r in runs.items()},
+            **({"fps_blocks": dict(
+                eval_forward=dict(launches=b_launches[name],
+                                  per_pair_ms=blocked_fwd),
+                sites=fps_blocked_times["sites"])}
+               if name == "fps" else {}),
+            **({"selfsup_sites": dict(
+                timing(ss_knn_times,
+                       ss_launches[name] - PER_FORWARD[name]),
+                by_k=ss_knn_times["by_k"])}
+               if name == "knn" else {})))
     kernel_rows.append(dict(
         name="fps_pruned", route="cuda", **KERNEL_META["fps_pruned"],
         **timing(fp_times, kd_launches["fps_pruned"]),
@@ -2017,9 +2355,9 @@ def main() -> int:
         eval_forward={n: dict(ms=v["feature_knn_ms"],
                               sites=v["feature_sites"])
                       for n, v in fg_eval.items()})]
-    log("[23/24 kernels]")
+    log("[24/25 kernels]")
     log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
-    log(f"[24/24 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[25/25 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,8 +15,13 @@ logging (utils), the data pipeline (data: numpy only), the six-metric eval
 sweep over a loader (eval.evaluate_model), the epoch loops
 (train.train_teacher, train.distill) and their command-line entries
 (python -m kd_pointcloud_tpu_torch.cli.<train|evaluate|distill|
-distill_bridge|fast_distill> <config>.yaml [--device cpu]). attic/ holds
-the ports of the JAX package's attic kernels, which no path runs.
+distill_bridge|fast_distill> <config>.yaml [--device cpu]); and the
+tooling around the model: the blocked-FPS relaxation (fps_blocks), the
+self-supervised loss (losses.selfsup), profiling and tracing (perf, with
+python -m kd_pointcloud_tpu_torch.cli.profile), the licensing band
+(eval.licensing), fixtures (utils.fixtures) and the raw-data
+preprocessors (data.preprocess). attic/ holds the ports of the JAX
+package's attic kernels, which no path runs.
 """
 
 __version__ = "0.1.0"

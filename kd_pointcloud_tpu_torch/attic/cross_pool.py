@@ -31,6 +31,7 @@ from ..ops.pool_fused import leaky
 KERNEL_C = (32, 64, 128, 256)
 
 
+@kernels.plain("cross_pool")
 def cross_pool_plain(u, v, idx, weights: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor]) -> torch.Tensor:
     h = leaky(group_points(u, idx) + v[:, :, None, :])
@@ -76,6 +77,7 @@ def _cross_pool_cuda(u, v, idx, weights, biases):
     kernels.launch("cross_pool", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    wt.data_ptr(), bias.data_ptr(), B, N1, N2, K, C,
                    len(weights), out.data_ptr())
+    kernels.report("cross_pool", u, v, idx, weights, biases)
     return out
 
 

@@ -106,8 +106,18 @@ def fps_pruned_plain(xyz: torch.Tensor, npoint: int,
                      return_dirty: bool = False):
     """(B, N, 3) float32 -> (B, npoint) int32, with the kernel's pruning;
     with return_dirty, also the (B,) count of sub-block updates made
-    (rounds x sub-blocks, less those skipped)."""
+    (rounds x sub-blocks, less those skipped). Inside kernels.counting()
+    it reports its kernel's work on these inputs."""
     _check(xyz, npoint)
+    with kernels.uncounted():
+        idxs, dirty_count = _pruned_rounds(xyz, npoint)
+    if kernels.is_counting():
+        kernels.report("fps_pruned", xyz, npoint, int(dirty_count.sum()))
+    return (idxs, dirty_count) if return_dirty else idxs
+
+
+def _pruned_rounds(xyz: torch.Tensor, npoint: int):
+    """fps_pruned_plain's rounds: (indices, sub-block updates a cloud)."""
     B, N, _ = xyz.shape
     lay = spatial_permutation(xyz)
     K = N // SUB
@@ -138,7 +148,7 @@ def fps_pruned_plain(xyz: torch.Tensor, npoint: int,
         far = torch.where(bm == bm.amax(1, keepdim=True), bi, big).amin(1)
         idxs[:, j] = far.int()
         last = xyz[rows, far]
-    return (idxs, dirty_count) if return_dirty else idxs
+    return idxs, dirty_count
 
 
 def _fps_pruned_cuda(xyz: torch.Tensor, npoint: int,
@@ -153,6 +163,8 @@ def _fps_pruned_cuda(xyz: torch.Tensor, npoint: int,
                    lay.centers.data_ptr(), lay.radii.data_ptr(),
                    xyz.data_ptr(), B, N, npoint, out.data_ptr(),
                    dirty.data_ptr())
+    if kernels.is_counting():
+        kernels.report("fps_pruned", xyz, npoint, int(dirty.sum()))
     return (out, dirty.long()) if return_dirty else out
 
 

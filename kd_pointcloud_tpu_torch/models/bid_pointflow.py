@@ -4,8 +4,10 @@ Port of kd_pointcloud_tpu/models/bid_pointflow.py for every preset: the
 conv encoder with light cross layers (the teacher and the presets sharing
 its architecture, serving_v3's coarse warp, the bottleneck students
 student, student2 and non_linear), the feature-grouping family (fg, and
-bifeat with two refinement iterations a level), no_cross and vote. Only
-fps_blocks > 1 (the blocked-FPS serving relaxation) raises.
+bifeat with two refinement iterations a level), no_cross and vote, and
+fps_blocks > 1, the blocked-FPS relaxation (ops/fps.py
+furthest_point_sample_blocked): under nested_fps it changes l1's FPS only,
+and with nested_fps=False every level's.
 
 Topology: an l0 encoder (Conv1d-style blocks, or for encoder="pointconv" a
 lift then a same-resolution PointConv), then an FPS PointConvD pyramid
@@ -49,7 +51,6 @@ from .config import ModelConfig
 _ENCODERS = ("conv", "pointconv")
 _CROSSES = ("light", "fg", "nocross", "vote")
 _LEVEL_BLOCKS = ("conv", "bottleneck")
-_FPS_BLOCKS = (1,)
 _COARSE_WARP_LEVELS = (0, 1, 2)
 
 
@@ -57,20 +58,20 @@ def check_config(cfg: ModelConfig) -> None:
     """Raise on a configuration outside the wiring the port covers."""
     wrong = {}
     for field, allowed in (("encoder", _ENCODERS), ("cross", _CROSSES),
-                           ("level_block", _LEVEL_BLOCKS),
-                           ("fps_blocks", _FPS_BLOCKS)):
+                           ("level_block", _LEVEL_BLOCKS)):
         if getattr(cfg, field) not in allowed:
             wrong[field] = getattr(cfg, field)
-    if cfg.iters < 1:
-        wrong["iters"] = cfg.iters
+    for field in ("iters", "fps_blocks"):
+        if getattr(cfg, field) < 1:
+            wrong[field] = getattr(cfg, field)
     if not set(cfg.coarse_warp) <= set(_COARSE_WARP_LEVELS):
         wrong["coarse_warp"] = cfg.coarse_warp
     if wrong:
         raise NotImplementedError(
             f"config {cfg.name!r}: the port covers encoder in {_ENCODERS}, "
             f"cross in {_CROSSES}, level_block in {_LEVEL_BLOCKS}, "
-            f"fps_blocks in {_FPS_BLOCKS}, iters >= 1 and coarse_warp "
-            f"within {_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
+            f"fps_blocks >= 1, iters >= 1 and coarse_warp within "
+            f"{_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
 
 
 class BidPointFlowNet(nn.Module):
@@ -150,7 +151,7 @@ class BidPointFlowNet(nn.Module):
                else PointConvD)
         return cls(cfg.npoints[lvl], cfg.feat_nei, cfg.lift_channels[lvl - 1],
                    cfg.level_channels[lvl], weightnet=cfg.weightnet[lvl],
-                   generator=g)
+                   generator=g, fps_blocks=cfg.fps_blocks)
 
     def _encode(self, pc0, color):
         if self.cfg.encoder == "conv":

@@ -3,9 +3,9 @@ kd_pointcloud_tpu/models/config.py (ModelConfig, PRESETS, tiny_config).
 
 The fields and presets are the JAX package's, value for value, so a preset
 names the same network in both packages. Field comments there give each
-field's source in the reference. The port builds every preset
-(models/bid_pointflow.py check_config names the values it refuses:
-fps_blocks > 1). knn_method, knn_recall, knn_precision and fps_backend select
+field's source in the reference. The port builds every preset and every
+fps_blocks >= 1 (models/bid_pointflow.py check_config names the values it
+refuses). knn_method, knn_recall, knn_precision and fps_backend select
 between the TPU's search and sampling back ends; the port's kNN and FPS are
 exact and ignore them.
 """

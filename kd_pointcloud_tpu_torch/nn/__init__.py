@@ -5,14 +5,14 @@ from .blocks import (MLP, BottleNeck, Dense, DepthwiseReLU, PointwiseBlock,
 from .cross import (CrossLayerLight, CrossLayerLightFG, CrossLayerLightVote,
                     NoCrossLayerLight)
 from .flowhead import SceneFlowEstimatorResidual
-from .pointconv import (PointConv, PointConvD, PointConvNonLinear,
-                        contract_dense, group_knn)
+from .pointconv import (PointConv, PointConvD, PointConvDRand,
+                        PointConvNonLinear, contract_dense, group_knn)
 from .weightnet import WeightNet
 
 __all__ = [
     "MLP", "BottleNeck", "Dense", "DepthwiseReLU", "PointwiseBlock", "leaky",
     "CrossLayerLight", "CrossLayerLightFG", "CrossLayerLightVote",
     "NoCrossLayerLight", "SceneFlowEstimatorResidual", "PointConv",
-    "PointConvD", "PointConvNonLinear",
+    "PointConvD", "PointConvDRand", "PointConvNonLinear",
     "contract_dense", "group_knn", "WeightNet",
 ]

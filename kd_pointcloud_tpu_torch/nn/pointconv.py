@@ -2,9 +2,11 @@
 
 Port of kd_pointcloud_tpu/nn/pointconv.py: group_knn, contract_dense,
 PointConv (same resolution), PointConvD (FPS downsampling, with the
-nested-FPS prefix) and PointConvNonLinear (its depthwise + pointwise
-factorisation, non_linear's l3 and l4). The (C, W) pair is flattened
-c-major into the Dense kernel, as the reference's .view(B, N, -1) does.
+nested-FPS prefix and the blocked-FPS relaxation), PointConvNonLinear (its
+depthwise + pointwise factorisation, non_linear's l3 and l4) and
+PointConvDRand (the random-sampling ablation: the first npoint rows, no
+preset uses it). The (C, W) pair is flattened c-major into the Dense
+kernel, as the reference's .view(B, N, -1) does.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import furthest_point_sample, gather_points, group_points, knn_point
+from ..ops import (furthest_point_sample, furthest_point_sample_blocked,
+                   gather_points, group_points, knn_point)
 from .blocks import Dense, _uniform_, leaky
 from .weightnet import WeightNet
 
@@ -93,17 +96,28 @@ class PointConv(nn.Module):
         return leaky(y)
 
 
-def fps_or_prefix(xyz: torch.Tensor, npoint: int, prefix: bool):
+def _prefix(xyz: torch.Tensor, npoint: int):
+    """The leading npoint rows (contiguous) and their indices."""
+    idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device)
+    return xyz[:, :npoint].contiguous(), idx.expand(xyz.shape[0], npoint)
+
+
+def fps_or_prefix(xyz: torch.Tensor, npoint: int, prefix: bool,
+                  fps_blocks: int = 1):
     """FPS-sample npoint rows, or take the leading npoint rows when prefix.
 
     Greedy FPS orderings are nested: on a cloud already in FPS-selection
     order, FPS of its first M rows selects exactly those rows in order
     (proof: kd_pointcloud_tpu/nn/pointconv.py _fps_or_prefix). So levels
-    2-4 slice level 1's ordering and FPS runs once per pair."""
+    2-4 slice level 1's ordering and FPS runs once per pair. fps_blocks >
+    1 samples with furthest_point_sample_blocked (exact FPS a block of rows,
+    orderings interleaved)."""
     if prefix:
-        idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device)
-        return xyz[:, :npoint].contiguous(), idx.expand(xyz.shape[0], npoint)
-    idx = furthest_point_sample(xyz, npoint)
+        return _prefix(xyz, npoint)
+    if fps_blocks > 1:
+        idx = furthest_point_sample_blocked(xyz, npoint, fps_blocks)
+    else:
+        idx = furthest_point_sample(xyz, npoint)
     return gather_points(xyz, idx), idx
 
 
@@ -112,19 +126,33 @@ class PointConvD(nn.Module):
 
     def __init__(self, npoint: int, nsample: int, in_channel: int,
                  out_channel: int, weightnet: int = 16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 fps_blocks: int = 1):
         super().__init__()
         self.npoint = npoint
         self.nsample = nsample
+        self.fps_blocks = fps_blocks
         self.weightnet = WeightNet(weightnet, generator=generator)
         self.dense = Dense((3 + in_channel) * weightnet, out_channel,
                            generator)
 
     def forward(self, xyz, feats, prefix_sample: bool = False):
-        new_xyz, fps_idx = fps_or_prefix(xyz, self.npoint, prefix_sample)
+        new_xyz, fps_idx = fps_or_prefix(xyz, self.npoint, prefix_sample,
+                                         self.fps_blocks)
         grouped, rel = group_knn(self.nsample, xyz, new_xyz, feats)
         y = contract_dense(grouped, self.weightnet(rel), self.dense)
         return new_xyz, leaky(y), fps_idx
+
+
+class PointConvDRand(PointConvD):
+    """The random-sampling ablation of PointConvD (the reference's
+    pointconv_util.py PointConvDRand): the first npoint rows instead of
+    FPS, as the JAX package takes them (the input clouds are already
+    randomly sampled). Same parameters as PointConvD; no preset uses it.
+    Returns (new_xyz, new_feat, idx)."""
+
+    def forward(self, xyz, feats, prefix_sample: bool = False):
+        return super().forward(xyz, feats, prefix_sample=True)
 
 
 class PointConvNonLinear(nn.Module):
@@ -137,7 +165,8 @@ class PointConvNonLinear(nn.Module):
 
     def __init__(self, npoint: int, nsample: int, in_channel: int,
                  out_channel: int, weightnet: int = 16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 fps_blocks: int = 1):
         super().__init__()
         if out_channel % weightnet:
             raise ValueError(f"out_channel {out_channel} is not a multiple "
@@ -145,6 +174,7 @@ class PointConvNonLinear(nn.Module):
         c = 3 + in_channel
         self.npoint = npoint
         self.nsample = nsample
+        self.fps_blocks = fps_blocks
         self.weightnet = WeightNet(weightnet, generator=generator)
         self.depthwise = nn.Parameter(torch.empty(c, 1))
         _uniform_(self.depthwise, c, generator)
@@ -152,7 +182,8 @@ class PointConvNonLinear(nn.Module):
         self.dense = Dense(c, out_channel // weightnet, generator)
 
     def forward(self, xyz, feats, prefix_sample: bool = False):
-        new_xyz, fps_idx = fps_or_prefix(xyz, self.npoint, prefix_sample)
+        new_xyz, fps_idx = fps_or_prefix(xyz, self.npoint, prefix_sample,
+                                         self.fps_blocks)
         grouped, rel = group_knn(self.nsample, xyz, new_xyz, feats)
         y = torch.einsum("bskc,bskw->bscw", grouped, self.weightnet(rel))
         y = y * self.depthwise + self.depthwise_bias[:, None]

@@ -4,7 +4,7 @@ Each kernel wrapper runs its kernel on a CUDA tensor and its plain version
 on a CPU tensor."""
 
 from .distance import square_distance
-from .fps import furthest_point_sample
+from .fps import furthest_point_sample, furthest_point_sample_blocked
 from .gather import gather_points, group_points
 from .interpolate import upsample_idw
 from .knn import knn_features, knn_point, knn_point_dist
@@ -12,7 +12,8 @@ from .pool_fused import leaky, pool_mlp_max
 from .warp import point_warp
 
 __all__ = [
-    "square_distance", "furthest_point_sample", "gather_points",
+    "square_distance", "furthest_point_sample",
+    "furthest_point_sample_blocked", "gather_points",
     "group_points", "upsample_idw", "knn_features", "knn_point", "knn_point_dist",
     "leaky", "pool_mlp_max", "point_warp",
 ]

@@ -9,6 +9,11 @@ tests).
 Both seed at index 0 and take, each round, the argmax of the running
 minimum squared distance with a first-index tie-break, and both select
 bit-identical indices. FPS has no gradient.
+
+``furthest_point_sample_blocked`` is the port of the JAX package's
+``furthest_point_sample_blocked``, the relaxation behind
+``ModelConfig.fps_blocks``: exact FPS on each contiguous block of rows,
+all blocks in one call (one kernel launch on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ MAX_CLUSTER = 8                  # the largest G the plan picks
 INT_MAX = 2**31 - 1
 
 
+@kernels.plain("fps")
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, npoint) int32, one torch op chain a round."""
     B, N, _ = xyz.shape
@@ -155,6 +161,7 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int,
                          f"above {ONE_BLOCK_POINTS} points; got G={g}, N={N}")
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     kernels.launch("fps", xyz.data_ptr(), B, N, npoint, g, out.data_ptr())
+    kernels.report("fps", xyz, npoint)
     return out
 
 
@@ -169,3 +176,25 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
     raise ValueError(f"no FPS for device {xyz.device}")
+
+
+def furthest_point_sample_blocked(xyz: torch.Tensor, npoint: int,
+                                  blocks: int) -> torch.Tensor:
+    """FPS with a blocks-times shorter serial chain: (B, N, 3) -> (B,
+    npoint) int32.
+
+    The N rows split into `blocks` contiguous blocks of N / blocks; exact
+    FPS selects npoint / blocks rows of each, the B * blocks blocks as
+    clouds of one furthest_point_sample call; offsets make the indices
+    global, and the block orderings interleave (entry j * blocks + b is
+    block b's j-th pick), so any prefix holds about as many picks of every
+    block. Exact FPS when blocks <= 1, N % blocks or npoint % blocks."""
+    _check(xyz, npoint)
+    B, N, _ = xyz.shape
+    if blocks <= 1 or N % blocks or npoint % blocks:
+        return furthest_point_sample(xyz, npoint)
+    nb, sb = N // blocks, npoint // blocks
+    idx = furthest_point_sample(xyz.reshape(B * blocks, nb, 3), sb)
+    off = torch.arange(blocks, dtype=torch.int32, device=xyz.device) * nb
+    idx = idx.reshape(B, blocks, sb) + off[None, :, None]
+    return idx.transpose(1, 2).reshape(B, npoint)

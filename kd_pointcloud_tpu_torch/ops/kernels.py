@@ -16,11 +16,23 @@ launches its kernel, and nowhere else, so a run can show that a path really
 went through the kernels. A kernel built for several channel widths also
 counts each launch under its width in ``WIDTH_LAUNCHES`` (key
 ``"<name> C=<width>"``), so a run can show which instances it went through.
+
+``kernel_work`` gives the operations and bytes a kernel's call needs on its
+inputs (each input read once, each output written once), the numbers its
+roofline bound is made of. Inside ``counting()`` every kernel wrapper
+reports its launch's work with ``report``, and every plain version (marked
+with ``plain``) reports the same numbers for its call while the aten ops it
+is made of are hidden from dispatch modes such as FlopCounterMode: a count
+of a model's operations is then the same on the CPU as on the card, where a
+``ctypes`` launch is invisible to dispatch. The pool backward's plain
+version is autograd of ``pool_plain``, which reports nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -69,6 +81,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}
+_count = None          # the WorkCount of the innermost counting() block
 
 
 def reset_launches() -> None:
@@ -201,3 +214,147 @@ def check_on_card(name: str, *tensors: torch.Tensor) -> None:
         if t.device.index not in (None, current):
             raise ValueError(f"{name}: tensor is on {t.device}, current "
                              f"device is cuda:{current}")
+
+
+def mask_entries(u, idx, v, weight, bias) -> int:
+    """The (query, neighbour, output channel) entries of a pool call where
+    leaky(p) is its query's max over the neighbours: B N1 C without ties."""
+    from .gather import group_points
+    from .pool_fused import leaky
+
+    with torch.no_grad():
+        p = leaky(torch.nn.functional.linear(
+            leaky(group_points(u, idx) + v[:, :, None, :]), weight, bias))
+        return int((p == p.amax(dim=2, keepdim=True)).sum())
+
+
+def kernel_work(name: str, *args) -> tuple:
+    """(operations, bytes) that kernel ``name`` needs on these arguments
+    (those of its wrapper; fps_pruned also takes the sub-block updates its
+    data needed): each input read once, each output written once."""
+    if name == "fps":
+        xyz, m = args
+        B, N, _ = xyz.shape
+        # per point and round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
+        return B * (m - 1) * N * 10, B * N * 12 + B * m * 4
+    if name == "knn":
+        k, xyz, q = args
+        B, S, N = q.shape[0], q.shape[1], xyz.shape[1]
+        # per pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add, 1 compare
+        return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
+    if name == "fps_pruned":
+        # dirty: the sub-block updates this run's data needed (all clouds);
+        # per round and sub-block the sphere test (3 sub, 5 mul, 4 add,
+        # sqrt, compare) and the fold's compare, per point of an updated
+        # sub-block FPS's 10
+        xyz, m, dirty = args
+        B, N, _ = xyz.shape
+        return (B * (m - 1) * (N // 128) * 15 + dirty * 128 * 10,
+                B * N * 12 + B * m * 4)
+    if name == "cross_pool":
+        # per (query, neighbour): C add + C leaky, L x (C x C multiply-add,
+        # C bias, C leaky), C max; reads u, v, idx, L weights and biases
+        u, v, idx, ws = args[:4]
+        B, N2, C = u.shape
+        N1, K = idx.shape[1:]
+        L = len(ws)
+        return (B * N1 * K * (3 * C + L * (2 * C * C + 2 * C)),
+                (B * N2 * C + 2 * B * N1 * C + L * (C * C + C) + B * N1 * K)
+                * 4)
+    if name not in ("pool", "pool_bwd"):
+        raise ValueError(f"no work count for kernel {name!r}")
+    u, idx, v, w, b = args[:5]
+    B, N2, C = u.shape
+    N1, K = idx.shape[1:]
+    if name == "pool":
+        # per (query, neighbour): C add + C leaky, C x C multiply-add,
+        # C bias + C leaky + C max
+        return (B * N1 * K * (2 * C * C + 5 * C),
+                (B * N2 * C + 2 * B * N1 * C + C * C + C + B * N1 * K) * 4)
+    # pool_bwd. Dense, per (query, neighbour): the forward's 2 C^2 + 5 C
+    # again (recomputed: the forward saves only its inputs), the max mask
+    # (C compares, C counts) and d_g = d_h0 leaky', d_v, d_u (3 C). d_p is
+    # nonzero only in the mask -- one neighbour a (query, output channel),
+    # more only where maxima tie exactly -- so d_h0 = d_p w, d_w += d_p^T h0
+    # (2 C each) and d_bias (1) count at the mask's entries on these inputs.
+    # Reads u, idx, v, w, bias, ct, writes d_u, d_v, d_w, d_bias.
+    return (B * N1 * K * (2 * C * C + 10 * C) + mask_entries(*args[:5])
+            * (4 * C + 1),
+            (2 * B * N2 * C + B * N1 * K + 3 * B * N1 * C + 2 * C * C
+             + 2 * C) * 4)
+
+
+class WorkCount:
+    """Calls, operations and bytes by kernel name, from kernel_work, of the
+    kernel launches and plain-version calls inside one counting() block."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.ops: dict = {}
+        self.bytes: dict = {}
+
+    def add(self, name: str, ops: int, nbytes: int) -> None:
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.ops[name] = self.ops.get(name, 0) + ops
+        self.bytes[name] = self.bytes.get(name, 0) + nbytes
+
+    @property
+    def total_ops(self) -> int:
+        return sum(self.ops.values())
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes.values())
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the work of every kernel launch and plain-version call in the
+    block; yields the WorkCount. Blocks nest; the innermost one counts."""
+    global _count
+    outer, _count = _count, WorkCount()
+    try:
+        yield _count
+    finally:
+        _count = outer
+
+
+@contextlib.contextmanager
+def uncounted():
+    """While a count is on, hide the block's aten ops from dispatch modes
+    (FlopCounterMode): a plain version's ops are its kernel's work, which
+    it reports itself."""
+    if _count is None:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
+
+
+def is_counting() -> bool:
+    """Whether a counting() block is on."""
+    return _count is not None
+
+
+def report(name: str, *args) -> None:
+    """Add kernel_work(name, *args) to the active count, if there is one."""
+    if _count is not None:
+        with uncounted():
+            _count.add(name, *kernel_work(name, *args))
+
+
+def plain(name: str):
+    """Mark fn as kernel ``name``'s plain version: inside counting() it
+    reports kernel_work(name, *its arguments) and runs uncounted."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            if _count is None:
+                return fn(*args)
+            report(name, *args)
+            with uncounted():
+                return fn(*args)
+        return run
+    return wrap

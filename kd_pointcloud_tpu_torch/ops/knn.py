@@ -20,6 +20,11 @@ layer's feature half). The JAX package runs it as XLA, no Pallas kernel
 (its fused kernel takes 3-D points only), so it is plain PyTorch on every
 device: the expansion with its cross term as one float32 matrix product,
 and an exact selection, ties toward the lower key index.
+
+The distances carry a gradient, as the JAX package's exact path's do (the
+self-supervised loss weights by them): on the CPU through the plain
+version's sort, on the card by ``_KnnFunction``'s backward of the
+expansion at the selected keys.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import torch
 
 from . import kernels
 from .distance import square_distance
+from .gather import group_points
 
-KERNEL_K = (3, 9, 16, 32)
+KERNEL_K = (3, 5, 9, 10, 16, 32)
 _CHUNK = 2048
 KERNEL_LANES = (1, 4, 8, 16, 32)   # lanes a query the kernel is built for
 ONE_LANE_K = 3                  # the k, and list entries, of L = 1
@@ -43,6 +49,7 @@ ONE_LANE_QUERIES = SMS * 256    # queries that give 8 warps an SM at L = 1
 MIN_BLOCKS = 2 * SMS
 
 
+@kernels.plain("knn")
 def knn_plain(k: int, xyz: torch.Tensor, query: torch.Tensor):
     """(d2, idx): (B, S, k) float32 expansion distances, ascending, and
     int32 indices into xyz."""
@@ -187,7 +194,44 @@ def _knn_cuda(k: int, xyz: torch.Tensor, query: torch.Tensor):
     d2 = torch.empty(B, S, k, dtype=torch.float32, device=xyz.device)
     kernels.launch("knn", query.data_ptr(), xyz.data_ptr(), B, S, N, k,
                    lanes, qpb, idx.data_ptr(), d2.data_ptr())
+    kernels.report("knn", k, xyz, query)
     return d2, idx
+
+
+class _KnnFunction(torch.autograd.Function):
+    """The kNN kernel, with a gradient for its distances: d2 is the
+    expansion |q|^2 - 2 q.k + |k|^2 at the selected keys, so g d2 adds
+    2 g (q - k) to its query and 2 g (k - q) to its key's row, as autograd
+    of knn_plain does. The indices have none."""
+
+    @staticmethod
+    def forward(ctx, k, xyz, query):
+        d2, idx = _knn_cuda(k, xyz, query)
+        ctx.save_for_backward(xyz, query, idx)
+        ctx.mark_non_differentiable(idx)
+        return d2, idx
+
+    @staticmethod
+    def backward(ctx, g_d2, _g_idx):
+        xyz, query, idx = ctx.saved_tensors
+        _, need_xyz, need_query = ctx.needs_input_grad
+        g = 2.0 * g_d2[..., None] * (query[:, :, None, :]
+                                     - group_points(xyz, idx))
+        g_query = g.sum(2) if need_query else None
+        g_xyz = None
+        if need_xyz:
+            B, N, _ = xyz.shape
+            rows = (idx.long() + torch.arange(B, device=idx.device)[
+                :, None, None] * N).reshape(-1)
+            g_xyz = torch.zeros(B * N, 3, dtype=g.dtype,
+                                device=g.device).index_add_(
+                0, rows, -g.reshape(-1, 3)).reshape(B, N, 3)
+        return None, g_xyz, g_query
+
+
+def _knn_card(k: int, xyz: torch.Tensor, query: torch.Tensor):
+    """The kNN on the card: the kernel, its distances' backward."""
+    return _KnnFunction.apply(k, xyz, query)
 
 
 def knn_point_dist(k: int, xyz: torch.Tensor, query: torch.Tensor):
@@ -199,7 +243,7 @@ def knn_point_dist(k: int, xyz: torch.Tensor, query: torch.Tensor):
     version."""
     _check(k, xyz, query)
     if xyz.device.type == "cuda":
-        return _knn_cuda(k, xyz, query)
+        return _knn_card(k, xyz, query)
     if xyz.device.type == "cpu":
         return knn_plain(k, xyz, query)
     raise ValueError(f"no kNN for device {xyz.device}")

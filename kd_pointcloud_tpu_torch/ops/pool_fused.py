@@ -56,6 +56,7 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_RATE)
 
 
+@kernels.plain("pool")
 def pool_plain(u: torch.Tensor, idx: torch.Tensor, v: torch.Tensor,
                weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """u (B, N2, C), idx (B, N1, K), v (B, N1, C), weight (C, C) in
@@ -194,6 +195,7 @@ def _pool_cuda(u, idx, v, weight, bias):
     kernels.launch("pool", u.data_ptr(), idx.data_ptr(), v.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), B, N1, N2, K, C,
                    out.data_ptr(), width=C)
+    kernels.report("pool", u, idx, v, weight, bias)
     return out
 
 
@@ -239,6 +241,7 @@ def _pool_bwd_cuda(u, idx, v, weight, bias, ct, need=(True,) * 4):
                    N2, K, C, ptr(d_u), ptr(d_v), ptr(d_w), ptr(d_b),
                    sel.data_ptr(), share.data_ptr(), hsign.data_ptr(),
                    width=C)
+    kernels.report("pool_bwd", u, idx, v, weight, bias, ct)
     return (d_u, d_v, d_w if need_w else None, d_b if need_b else None)
 
 

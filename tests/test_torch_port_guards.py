@@ -44,7 +44,11 @@ def _port_files():
                  "data/synthetic.py", "eval/geometry.py", "eval/metrics.py",
                  "eval/runner.py", "train/experiment.py", "cli/train.py",
                  "cli/evaluate.py", "cli/distill.py",
-                 "cli/distill_bridge.py", "cli/fast_distill.py"):
+                 "cli/distill_bridge.py", "cli/fast_distill.py",
+                 "losses/selfsup.py", "perf/profiling.py", "perf/trace.py",
+                 "cli/profile.py", "utils/fixtures.py", "eval/licensing.py",
+                 "data/preprocess/io.py", "data/preprocess/png16.py",
+                 "data/preprocess/ft3d.py", "data/preprocess/kitti.py"):
         assert PACKAGE / name in files
     return files
 
@@ -54,7 +58,7 @@ def test_port_imports_no_jax_flax_or_jax_package(path):
     src = path.read_text()
     assert not FORBIDDEN.search(src), FORBIDDEN.search(src).group(0)
     assert "import cpp_extension" not in src
-    if path.parent.name in ("data", "utils"):
+    if path.parent.name in ("data", "utils", "preprocess"):
         # loader workers fork after CUDA is up: they must not touch torch
         assert not re.search(r"^\s*(import|from)\s+torch", src, re.M)
 
@@ -193,6 +197,16 @@ def test_train_entry_runs_on_cpu_without_jax():
     assert np.isfinite(summary["loss_last"])
 
 
+def _kernel_work(name, args):
+    return kernels.kernel_work(name, *args)
+
+
+def test_chip_smoke_takes_its_work_counts_from_the_package():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "kernel_work" in src and "def work(" not in src
+    assert "def mask_entries(" not in src
+
+
 def _load_chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -283,17 +297,18 @@ def test_chip_smoke_tie_case_and_zero_gradient_leaves():
 def test_chip_smoke_work_counts():
     """The pool backward's operations count d_h0, d_w and d_bias only at
     the max mask: every neighbour when all tie, one a (query, output
-    channel) when none do."""
-    mod = _load_chip_smoke()
+    channel) when none do. (chip_smoke.py takes its counts from
+    ops/kernels.py kernel_work.)"""
+    work = _kernel_work
     B, N1, N2, K, C = 3, 50, 100, 32, 32
     u = torch.zeros(B, N2, C)
     idx = torch.zeros(B, N1, K, dtype=torch.int32)
     v = torch.zeros(B, N1, C)
     args = (u, idx, v, torch.zeros(C, C), torch.zeros(C))
-    ops, nbytes = mod.work("pool", args)
+    ops, nbytes = work("pool", args)
     assert ops == B * N1 * K * (2 * C * C + 5 * C)
     dense = B * N1 * K * (2 * C * C + 10 * C)
-    ops_b, bytes_b = mod.work("pool_bwd", args + (v,))
+    ops_b, bytes_b = work("pool_bwd", args + (v,))
     assert ops_b == dense + B * N1 * K * C * (4 * C + 1)
     assert bytes_b > nbytes
     rng = np.random.default_rng(0)
@@ -303,7 +318,7 @@ def test_chip_smoke_work_counts():
                   axis=2)[..., :K].copy()),
               v, torch.from_numpy(rng.standard_normal((C, C), np.float32)),
               torch.zeros(C))
-    ops_u, _ = mod.work("pool_bwd", untied + (v,))
+    ops_u, _ = work("pool_bwd", untied + (v,))
     assert ops_u == dense + B * N1 * C * (4 * C + 1)
 
 
@@ -312,21 +327,21 @@ def test_chip_smoke_work_counts_attic_kernels():
     at the sub-block updates the data needed; the cross pool at L = 1
     counts what the pool counts, and each further layer 2 C^2 + 2 C a
     (query, neighbour) more."""
-    mod = _load_chip_smoke()
+    work = _kernel_work
     B, N, m = 2, 8192, 2048
     xyz = torch.zeros(B, N, 3)
-    full, nbytes = mod.work("fps", (xyz, m))
-    ops0, bytes0 = mod.work("fps_pruned", (xyz, m, 0))
+    full, nbytes = work("fps", (xyz, m))
+    ops0, bytes0 = work("fps_pruned", (xyz, m, 0))
     assert bytes0 == nbytes and ops0 == B * (m - 1) * (N // 128) * 15
-    ops_all, _ = mod.work("fps_pruned", (xyz, m, B * (m - 1) * (N // 128)))
+    ops_all, _ = work("fps_pruned", (xyz, m, B * (m - 1) * (N // 128)))
     assert ops_all == ops0 + full
     Bp, N1, N2, K, C = 2, 40, 50, 16, 64
     u, v = torch.zeros(Bp, N2, C), torch.zeros(Bp, N1, C)
     idx = torch.zeros(Bp, N1, K, dtype=torch.int32)
     w, b = torch.zeros(C, C), torch.zeros(C)
-    ops1, bytes1 = mod.work("cross_pool", (u, v, idx, [w], [b]))
-    assert (ops1, bytes1) == mod.work("pool", (u, idx, v, w, b))
-    ops2, bytes2 = mod.work("cross_pool", (u, v, idx, [w, w], [b, b]))
+    ops1, bytes1 = work("cross_pool", (u, v, idx, [w], [b]))
+    assert (ops1, bytes1) == work("pool", (u, idx, v, w, b))
+    ops2, bytes2 = work("cross_pool", (u, v, idx, [w, w], [b, b]))
     assert ops2 - ops1 == Bp * N1 * K * (2 * C * C + 2 * C)
     assert bytes2 - bytes1 == (C * C + C) * 4
 
@@ -355,6 +370,30 @@ def test_chip_smoke_workflow_runs_on_cpu(monkeypatch):
     for label in ("distill", "distill_bridge", "fast_distill"):
         assert out["distill"][label][0]["checkpoint"]
     assert datasets.FlyingThings3DSubset.TRAIN_COUNT == 19640   # restored
+
+
+def test_chip_smoke_preprocess_phase_runs_on_cpu(monkeypatch):
+    """The smoke run's raw-frames-to-eval step on the CPU at tiny_config
+    and small frames: both preprocessors' entries (one worker each), then
+    the FT3D and KITTI evals, each scene's points as written and the six
+    metrics and loss finite; the plain versions launch no kernel."""
+    mod = _load_chip_smoke()
+    monkeypatch.setitem(PRESETS, "teacher", tiny_config("teacher"))
+    out = mod.preprocess_eval(
+        "cpu", 256, ft3d=dict(train=1, val=2, height=30, width=40),
+        kitti=dict(frames=(0, 3), height=25, width=50), workers=1)
+    assert list(out["scenes"]) == ["FT3D val", "KITTI"]
+    assert len(out["scenes"]["FT3D val"]) == 2
+    assert len(out["scenes"]["KITTI"]) == 2
+    assert all(n > 256 for v in out["scenes"].values() for n in v)
+    for label in out["metrics"]:
+        assert set(out["metrics"][label]) == {
+            "epe3d", "acc3ds", "acc3dr", "outliers", "epe2d", "acc2d",
+            "loss"}
+        assert not any(out["launches"][label].values())
+    assert mod.PER_SELFSUP_STEP == {"fps": 1, "knn": 35, "pool": 12,
+                                    "pool_bwd": 12, "fps_pruned": 0,
+                                    "cross_pool": 0}
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -218,12 +218,12 @@ def test_teacher_wiring_presets_accepted(name):
     BidPointFlowNet(tiny_config(name), device="cpu")
 
 
-@pytest.mark.parametrize("change", [dict(fps_blocks=2),
+@pytest.mark.parametrize("change", [dict(fps_blocks=0),
                                     dict(coarse_warp=(3,)),
                                     dict(encoder="mlp"),
                                     dict(cross="attention")])
 def test_uncovered_presets_raise(change):
-    """What the port still refuses: the blocked-FPS relaxation, a coarse
+    """What the port still refuses: fewer than one FPS block, a coarse
     warp at l3, and wirings no preset names."""
     cfg = dataclasses.replace(tiny_config("teacher"), **change)
     with pytest.raises(NotImplementedError):
