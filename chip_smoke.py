@@ -19,8 +19,9 @@ entries from a YAML through the data pipeline and the epoch loops to the
 six-metric eval and the checkpoint; then the tooling around the model: the
 blocked-FPS relaxation (fps_blocks), the self-supervised loss's backward
 through a student, the profile entry, a trace, and raw frames through the
-preprocessors to the eval -- and holds each hand-written kernel against
-its plain PyTorch version. Phases, each printing flushed lines as
+preprocessors to the eval; then the experimental inventory's modules and
+the pointnet2 API on the FPS and kNN kernels, the kNN up to k = 64 -- and
+holds each hand-written kernel against its plain PyTorch version. Phases, each printing flushed lines as
 it goes:
 
   1. device: name, count, power limit (nvidia-smi), torch and CUDA versions;
@@ -167,21 +168,40 @@ it goes:
      knn_plain at each of its 16 sites (k = 10, 9, 5 at 8192^2, 2048^2,
      512^2, 256^2) and timed there; cli.profile for teacher, student and
      fg; the operation count of a tiny_config teacher equal on the CPU and
-     the card (tiny_config's feat_nei raised to 16, a k the kNN kernel
-     takes); a perf.trace of one teacher forward holding one record of
+     the card; a perf.trace of one teacher forward holding one record of
      each of its fps, knn and pool launches (beside a bare profiler
      session's and an empty warm-up step's lost records); seeded raw FT3D (540 x 960) and KITTI
      (375 x 1242) frames through the preprocessors' entries (PNGs the
      bundled codec reads: no PIL), then evaluate_model of a seeded teacher
      on each result (the six metrics: a sanity line);
- 24. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
+ 24. the experimental inventory (inventory): every module of
+     nn/experimental.py, the ConvGRU, the two inventory flow heads and the
+     pointnet2 API at the teacher's widths, batch 1 -- l1 (2048 points a
+     cloud by the FPS kernel from the 8192-point pair, C = 64; feat_nei 16
+     for the PointConv kind, flow_nei 32 for the cross layers, so
+     CrossLocalTransLayer searches k = 64 over 2048 keys and
+     CrossTransLayer attends 2048 x 2048; 9 neighbours and a hidden 128 for
+     the heads) and the down-samplers from l0 (8192 -> 2048, C = 32;
+     PointnetSAModule at the smallest radius whose median ball holds half
+     its nsample, printed); PointnetFPModule 2048 -> 8192. Each module once
+     through the kernels (the launch counts set to 0 before and read
+     after; FPS and kNN must launch) and once, on a copy, through the plain
+     versions: outputs within max abs 1e-3 / median 1e-5, indices equal;
+     its launches and forward ms printed. FPS and kNN bit-identical at
+     each distinct site, timed there, the k = 64 site beside its plain
+     version and bound; then the kNN kernel alone at k = 1, 2, 7, 8, 24,
+     31, 33, 48, 63, 64 over the l1 pair (2048^2, B = 2), an l0 cloud
+     (8192^2) and duplicated points (ties across lanes and across a lane's
+     two entries), each bit-identical, with its plan;
+ 25. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
      for the kernels of the paths, the train step's, the eval forward's,
      the student KD step's and the fast KD step's beside them, the pool's
      C = 16 sites, each workflow run's launches, and the tooling phase's
      blocked FPS and self-supervised kNN sites; the attic kernels at their
      phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step and
-     FG eval pair);
- 25. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+     FG eval pair; FPS and kNN at the inventory's sites, the k = 64 site,
+     and the inventory modules' forwards);
+ 26. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -259,6 +279,16 @@ SELFSUP_KNN = 16            # 4 searches a level (k = 10, 10, 9, 5) x 4
 PROFILE_PRESETS = ("teacher", "student", "fg")
 RAW_FT3D = dict(train=1, val=2, height=540, width=960)
 RAW_KITTI = dict(frames=(0, 1, 2), height=375, width=1242)
+# the annotation around the traced forward of the tooling phase
+TRACED_FORWARD = "teacher eval forward"
+# the inventory phase: the flow heads' neighbours, ConvGRU's hidden width,
+# the radii tried for PointnetSAModule's ball, timed forwards a module, and
+# the k of the kNN sweep (KERNEL_K's edges, 33-64 at two entries a lane)
+INVENTORY_HEAD_K = 9
+INVENTORY_GRU_HIDDEN = 128
+INVENTORY_RADII = (1.0, 1.25, 1.5, 2.0, 2.5, 3.0)
+INVENTORY_REPS = 3
+KNN_SWEEP = (1, 2, 7, 8, 24, 31, 33, 48, 63, 64)
 # device against host eval path: the same forward, metrics in torch on the
 # card against numpy on the host (float32 sums in another order)
 EVAL_PATHS_RTOL = 1e-5
@@ -360,8 +390,9 @@ def ptxas_summary(text: str):
 
 def profile_device(run, n: int, what: str) -> None:
     """Where the time goes on the card: run(i) for i < n under
-    torch.profiler (perf.recording, after its warm-up step); device time a {what} by kernel name (the port's own
-    kernels marked *), launches a {what}, and the device's busy share of the
+    torch.profiler (perf.recording, after its warm-up step and settle,
+    whose kernels are left out); device time a {what} by kernel name (the
+    port's own kernels marked *), launches a {what}, and the device's busy share of the
     profiled wall (one stream, so kernels do not overlap). The profiler's
     own host cost lowers that share."""
     import torch
@@ -369,6 +400,7 @@ def profile_device(run, n: int, what: str) -> None:
     from torch.profiler import ProfilerActivity
 
     from kd_pointcloud_tpu_torch.perf import recording
+    from kd_pointcloud_tpu_torch.perf.trace import SETTLE_KERNEL
 
     with recording([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -380,7 +412,8 @@ def profile_device(run, n: int, what: str) -> None:
     # step, for one) spans kernels that are counted on their own
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+            and not getattr(e, "is_user_annotation", False)
+            and SETTLE_KERNEL not in e.key]
     log(f"  profile: {n} of them under torch.profiler, {wall:.3f} ms a "
         f"{what} of wall")
     if not rows:
@@ -401,15 +434,47 @@ def profile_device(run, n: int, what: str) -> None:
 
 
 
-def unrecorded_launches(events) -> int:
-    """Kernel launches (runtime or driver calls) of a Chrome trace whose
-    kernel has no record there."""
+def _launches(events, within=None) -> list:
+    """Kernel launches (runtime or driver calls) of a Chrome trace, in time
+    order, each with whether its kernel has a record there; with within,
+    only those inside the span of the annotation of that name."""
     kernel = {e.get("args", {}).get("correlation") for e in events
               if e.get("cat") == "kernel"}
-    return sum(1 for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver")
-               and "LaunchKernel" in str(e.get("name"))
-               and e.get("args", {}).get("correlation") not in kernel)
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if within is not None and e.get("name") == within
+             and e.get("cat") in ("user_annotation", "cpu_op")]
+    return [(e, e.get("args", {}).get("correlation") in kernel)
+            for e in sorted(events, key=lambda e: e.get("ts", 0))
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "LaunchKernel" in str(e.get("name"))
+            and (within is None
+                 or any(a <= e.get("ts", 0) <= b for a, b in spans))]
+
+
+def unrecorded_launches(events, within=None) -> int:
+    """Kernel launches of a Chrome trace (inside the annotation within,
+    where given) whose kernel has no record there."""
+    return sum(1 for _, recorded in _launches(events, within)
+               if not recorded)
+
+
+def unrecorded_detail(events, within=None) -> str:
+    """Where the unrecorded launches are: their place among the trace's
+    launches and the innermost CPU op around each."""
+    launches = _launches(events, within)
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    out = []
+    for i, (e, recorded) in enumerate(launches):
+        if recorded:
+            continue
+        t, tid = e.get("ts", 0), e.get("tid")
+        around = [o for o in ops if o.get("tid") == tid
+                  and o["ts"] <= t <= o["ts"] + o.get("dur", 0)]
+        inner = min(around, key=lambda o: o.get("dur", 0))["name"] \
+            if around else "-"
+        out.append(f"#{i} of {len(launches)} ({e.get('name')}, in "
+                   f"{inner})")
+    return "; ".join(out)
 
 
 def pool_bwd_plain(u, idx, v, weight, bias, ct):
@@ -848,7 +913,12 @@ def main() -> int:
                                               pairs_loader, synthetic_pairs)
     from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                                 Bridge)
+    from kd_pointcloud_tpu_torch.nn import ConvGRU
     from kd_pointcloud_tpu_torch.nn import cross as cross_nn
+    from kd_pointcloud_tpu_torch.nn import experimental as ex_nn
+    from kd_pointcloud_tpu_torch.nn import flowhead as flowhead_nn
+    from kd_pointcloud_tpu_torch.ops import gather_points, square_distance
+    from kd_pointcloud_tpu_torch.ops import pointnet2_compat as pn2
     from kd_pointcloud_tpu_torch.ops import fps as fps_mod
     from kd_pointcloud_tpu_torch.ops import kernels
     from kd_pointcloud_tpu_torch.ops.kernel_ab import fps_skeleton
@@ -871,7 +941,8 @@ def main() -> int:
     from kd_pointcloud_tpu_torch.models import tiny_config
     from kd_pointcloud_tpu_torch.perf import annotate, flop_count
     from kd_pointcloud_tpu_torch.perf import trace as perf_trace
-    from kd_pointcloud_tpu_torch.perf.trace import (TRACE_FILE,
+    from kd_pointcloud_tpu_torch.perf.trace import (SETTLE_KERNELS,
+                                                   TRACE_FILE,
                                                    WARM_UP_KERNELS,
                                                    kernel_records)
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -888,7 +959,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/25 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/26 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -898,7 +969,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/25 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/26 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -988,7 +1059,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/25 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/26 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -1223,7 +1294,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/25 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/26 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -1277,7 +1348,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/25 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/26 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -1324,7 +1395,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/25 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/26 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -1351,7 +1422,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/25 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/26 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -1431,7 +1502,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/25 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/26 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -1447,7 +1518,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/25 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/26 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1547,7 +1618,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/25 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/26 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1579,7 +1650,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/25 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/26 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1615,7 +1686,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/25 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/26 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1657,7 +1728,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/25 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/26 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1684,7 +1755,7 @@ def main() -> int:
     c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
     check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
           f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
-    log(f"[14/25 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+    log(f"[14/26 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
     for line in ptxas_summary(info["log"]):
@@ -1719,7 +1790,7 @@ def main() -> int:
     loss_k = float(s_step(kd_batch))
     s_launches = dict(kernels.LAUNCHES)
     s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
-    log(f"[15/25 student KD path] one distill step, teacher -> student, "
+    log(f"[15/26 student KD path] one distill step, teacher -> student, "
         f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
         f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
     check(s_launches == PER_KD_STEP,
@@ -1757,7 +1828,7 @@ def main() -> int:
     deadline("student KD path")
 
     # ---------------------------------------------------------------- 16
-    time_steps(s_step, kd_batch, "16/25 student KD timing", "KD step",
+    time_steps(s_step, kd_batch, "16/26 student KD timing", "KD step",
                KD_BATCH)
     s_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(s_model).train()
@@ -1796,7 +1867,7 @@ def main() -> int:
     deadline("student KD timing")
 
     # ---------------------------------------------------------------- 17
-    log(f"[17/25 student presets' eval forwards] batch 1, {N_POINTS} "
+    log(f"[17/26 student presets' eval forwards] batch 1, {N_POINTS} "
         f"points, through evaluate_model, each against its plain versions; "
         f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
     teacher_knn = sorted(site("knn", args) for args in calls["knn"])
@@ -1845,7 +1916,7 @@ def main() -> int:
         deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 18
-    log(f"[18/25 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
+    log(f"[18/26 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
         f"{N_POINTS} points, through evaluate_model, each against its plain "
         f"versions and timed over {N_TIMED_PAIRS} pairs")
     fg_eval = {}
@@ -1917,7 +1988,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(f_step(kd_batch))
     f_launches = dict(kernels.LAUNCHES)
-    log(f"[19/25 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
+    log(f"[19/26 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
         f"-> {FAST_STUDENT}, batch {KD_BATCH}, {N_POINTS} points, "
         f"att_iter_loss {FAST_KD_ARGS}: launches {f_launches}")
     check(f_launches == per_fast,
@@ -1948,7 +2019,7 @@ def main() -> int:
     deadline("fast KD path")
 
     # ---------------------------------------------------------------- 20
-    time_steps(f_step, kd_batch, "20/25 fast KD timing", "fast KD step",
+    time_steps(f_step, kd_batch, "20/26 fast KD timing", "fast KD step",
                KD_BATCH)
     f_calls, f_feat = {n: [] for n in points}, []
     rec_student = copy.deepcopy(f_student).train()
@@ -1995,7 +2066,7 @@ def main() -> int:
     deadline("fast KD timing")
 
     # ---------------------------------------------------------------- 21
-    log(f"[21/25 no_cross and vote eval forwards] batch 1, {N_POINTS} "
+    log(f"[21/26 no_cross and vote eval forwards] batch 1, {N_POINTS} "
         "points, through evaluate_model, each against its plain versions")
     for name in ABLATION_PRESETS:
         amodel = BidPointFlowNet(
@@ -2018,7 +2089,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 22
     t_phase = time.monotonic()
-    log(f"[22/25 workflow] the cli entries (train with resume, evaluate, "
+    log(f"[22/26 workflow] the cli entries (train with resume, evaluate, "
         f"the device and host eval paths, distill, distill_bridge, "
         f"fast_distill) at {N_POINTS} points and full width, on seeded "
         f"trees")
@@ -2049,7 +2120,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 23
     t_phase = time.monotonic()
-    log(f"[23/25 tooling] fps_blocks={FPS_BLOCKS}, the self-supervised "
+    log(f"[23/26 tooling] fps_blocks={FPS_BLOCKS}, the self-supervised "
         f"loss through a student, the profile entry, a trace, raw frames to "
         f"the eval; {N_POINTS} points, full width")
     # blocked FPS: l1's 8192 -> 2048 as blocks of 1024 -> 256, the stacked
@@ -2217,10 +2288,8 @@ def main() -> int:
             f"{st['kernel_flops']}, kernel bytes {st['kernel_bytes']}), "
             f"{st['latency_ms']:.3f} ms a pair, {st['pairs_per_sec']:.3f} "
             f"pairs/s")
-    # tiny_config's feat_nei 8 raised to 16: the kernel's k are KERNEL_K
-    tiny = BidPointFlowNet(
-        dataclasses.replace(tiny_config("teacher"), feat_nei=16),
-        device="cpu", generator=torch.Generator().manual_seed(SEED))
+    tiny = BidPointFlowNet(tiny_config("teacher"), device="cpu",
+                           generator=torch.Generator().manual_seed(SEED))
     tiny_in = [torch.from_numpy(a)[None]
                for a in synthetic_pairs(1, 256, seed=SEED)[0][:4]]
     count_cpu = flop_count(make_eval_forward(tiny), *tiny_in)
@@ -2253,7 +2322,7 @@ def main() -> int:
             bare[label] = json.loads((Path(tdir) / "bare.json").read_text(
                 ))["traceEvents"]
         with perf_trace(tdir):
-            with annotate("teacher eval forward"):
+            with annotate(TRACED_FORWARD):
                 fwds["exact"](*dev_pairs[0][:4])
         events = json.loads((Path(tdir) / TRACE_FILE).read_text())[
             "traceEvents"]
@@ -2262,13 +2331,19 @@ def main() -> int:
         log(f"  {label} of one teacher forward: {unrecorded_launches(ev)} "
             f"launches without a kernel record; the port's kernels "
             f"{kernel_records(ev)}")
-    log(f"  perf.trace ({WARM_UP_KERNELS} warm-up kernels) of one teacher "
-        f"forward: {unrecorded_launches(events)} launches without a kernel "
-        f"record; the port's kernels {traced} (launched {want}); "
-        f"annotation "
-        f"{'teacher eval forward' in {e.get('name') for e in events}}")
-    check(traced == want and not unrecorded_launches(events),
-          f"the trace of one forward holds {traced}")
+    fwd_launches = len(_launches(events, TRACED_FORWARD))
+    log(f"  perf.trace ({WARM_UP_KERNELS} warm-up kernels, "
+        f"{SETTLE_KERNELS} settle kernels) of one teacher forward: "
+        f"{fwd_launches} launches in the forward, "
+        f"{unrecorded_launches(events, TRACED_FORWARD)} of them without a "
+        f"kernel record ({unrecorded_launches(events)} in the whole trace, "
+        f"the settle's included); the port's kernels {traced} (launched "
+        f"{want})")
+    check(traced == want and fwd_launches > 0
+          and not unrecorded_launches(events, TRACED_FORWARD),
+          f"the trace of one forward holds {traced}; its launches without "
+          f"a kernel record: "
+          f"{unrecorded_detail(events, TRACED_FORWARD) or 'none'}")
     del fwds, e_model, tiny
     deadline("profile and trace")
 
@@ -2291,6 +2366,311 @@ def main() -> int:
     deadline("tooling")
 
     # ---------------------------------------------------------------- 24
+    t_phase = time.monotonic()
+    teacher = PRESETS["teacher"]
+    n0, n1 = teacher.npoints[:2]
+    c0, c1 = teacher.level_channels[:2]
+    fn, xn = teacher.feat_nei, teacher.flow_nei
+    log(f"[24/26 inventory] the experimental inventory and the pointnet2 API "
+        f"at the teacher's widths: l1 {n1} points a cloud (FPS of the "
+        f"{n0}-point pair), C = {c1}, feat_nei {fn}, flow_nei {xn}, heads "
+        f"{INVENTORY_HEAD_K} neighbours; down-samplers {n0} -> {n1} at "
+        f"C = {c0}; seeded weights and features")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    xyz0, xyz0b = dev_pairs[0][0], dev_pairs[0][1]
+    with torch.inference_mode():
+        xyz1, xyz1b = (gather_points(p_, fps_mod.furthest_point_sample(
+            p_, n1)) for p_ in (xyz0, xyz0b))
+    xyz1, xyz1b = xyz1.clone(), xyz1b.clone()
+    f0, f0b = randn(1, n0, c0), randn(1, n0, c0)
+    f1, f1b, cost1, bid1 = (randn(1, n1, c1) for _ in range(4))
+    flow1, occ1, h1 = 0.1 * randn(1, n1, 3), randn(1, n1, 1), randn(
+        1, n1, INVENTORY_GRU_HIDDEN)
+    pair1 = (xyz1, xyz1b, f1, f1b)
+    # PointnetSAModule's radius: the smallest of INVENTORY_RADII at which
+    # the median ball around the l1 centres holds nsample / 2 points
+    with torch.no_grad():
+        d2_ball = square_distance(xyz1, xyz0)
+        for radius in INVENTORY_RADII:
+            in_ball = (d2_ball < radius * radius).sum(-1).clamp(max=fn)
+            median_hits = float(in_ball.float().median())
+            if median_hits >= fn / 2:
+                break
+        del d2_ball
+    check(median_hits >= fn / 2, f"no radius of {INVENTORY_RADII} holds "
+          f"{fn // 2} points in the median ball")
+    log(f"  PointnetSAModule radius {radius} m: the median ball of its "
+        f"{n1} centres holds {median_hits:.0f} of nsample {fn} points")
+    head = dict(neighbors=INVENTORY_HEAD_K)
+    cases = [
+        # (a) the PointConv variants and down-samplers
+        ("PointConvSVD", lambda g: ex_nn.PointConvSVD(fn, c1, c1,
+                                                      generator=g),
+         (xyz1, f1)),
+        ("PointConvBias", lambda g: ex_nn.PointConvBias(fn, c1, c1,
+                                                        generator=g),
+         (xyz1, f1)),
+        ("PointConvFactor", lambda g: ex_nn.PointConvFactor(fn, c1, c1,
+                                                            generator=g),
+         (xyz1, f1)),
+        ("PointConvK", lambda g: ex_nn.PointConvK(fn, c1, c1, g), (xyz1, f1)),
+        ("SepConv", lambda g: ex_nn.SepConv(fn, c1, c1, g), (xyz1, f1)),
+        # 3 + C must be whole 3-vectors: the first 30 of the 32 channels
+        ("VNNConvD", lambda g: ex_nn.VNNConvD(n1, fn, 30, c1 // 3, g),
+         (xyz0, f0[..., :30].contiguous())),
+        ("SetAbstract", lambda g: ex_nn.SetAbstract(fn, c1, (c1, c1), g),
+         (xyz1, f1)),
+        ("SetAbstractD", lambda g: ex_nn.SetAbstractD(n1, fn, c0, (c1, c1),
+                                                      g), (xyz0, f0)),
+        ("SetAbstractFuse", lambda g: ex_nn.SetAbstractFuse(
+            fn, c1, (c1, c1), (c1,), g), (xyz1, f1)),
+        ("SetAbstractFuseD", lambda g: ex_nn.SetAbstractFuseD(
+            n1, fn, c0, (c1, c1), (c1,), g), (xyz0, f0)),
+        ("PointConvW", lambda g: ex_nn.PointConvW(n1, fn, c0, c1, g),
+         (xyz0, f0)),
+        ("PointConvSVDD", lambda g: ex_nn.PointConvSVDD(n1, fn, c0, c1,
+                                                        generator=g),
+         (xyz0, f0)),
+        ("PointConvWeight", lambda g: ex_nn.PointConvWeight(
+            n1, fn, c0, c1, generator=g), (xyz0, f0)),
+        ("PointConvDS", lambda g: ex_nn.PointConvDS(n1, fn, c0, c1,
+                                                    generator=g),
+         (xyz0b, xyz0, f0)),
+        ("AdaptiveSampling", lambda g: ex_nn.AdaptiveSampling(xn),
+         (xyz1, f1, xyz1b, f1b)),
+        ("PointConv4D", lambda g: ex_nn.PointConv4D(fn, c1, c1, generator=g),
+         (xyz1b, xyz1, f1)),
+        ("LocalFeatureAggregation", lambda g: ex_nn.LocalFeatureAggregation(
+            fn, c1, c1, g), (xyz1, f1)),
+        # (b) the cross layers
+        ("PointConvFlow", lambda g: ex_nn.PointConvFlow(xn, c1, (c1, c1), g),
+         pair1),
+        ("CrossLayerConcat", lambda g: ex_nn.CrossLayerConcat(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        ("CrossConvLayer", lambda g: ex_nn.CrossConvLayer(
+            xn, c1, c1, c1, generator=g), pair1),
+        ("FlowEmbeddingLayer", lambda g: ex_nn.FlowEmbeddingLayer(
+            xn, c1, (c1,), g), pair1),
+        ("CrossLayerLightUp", lambda g: ex_nn.CrossLayerLightUp(
+            xn, c0, c1, (c1, c1), g), (xyz0, xyz1b, f0, f1b)),
+        ("CrossTransLayer", lambda g: ex_nn.CrossTransLayer(
+            xn, c1, (c1,), (c1,), g), pair1),
+        ("CrossLocalTransLayer", lambda g: ex_nn.CrossLocalTransLayer(
+            xn, c1, (c1,), (c1,), g), pair1),
+        ("CrossLayerPoolLight", lambda g: ex_nn.CrossLayerPoolLight(
+            xn, c1, (c1,), (c1,), g), pair1),
+        ("CrossLayerLightVoteDouble", lambda g:
+         ex_nn.CrossLayerLightVoteDouble(xn, c1, (c1, c1), (c1, c1),
+                                         dense_channel=c0, generator=g),
+         (*pair1, xyz0b, f0b)),
+        ("CrossLayerLightVote1", lambda g: ex_nn.CrossLayerLightVote1(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        ("CrossLayerLightVote2", lambda g: ex_nn.CrossLayerLightVote2(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        ("NoCrossLayer", lambda g: ex_nn.NoCrossLayer(xn, c1, (c1, c1), True,
+                                                      g), pair1),
+        ("CrossAtten", lambda g: ex_nn.CrossAtten(c1, c1, g), pair1),
+        ("CrossLayerLightOcc", lambda g: ex_nn.CrossLayerLightOcc(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        ("CrossLayerLightAttentive", lambda g:
+         ex_nn.CrossLayerLightAttentive(xn, c1, (c1, c1), (c1, c1), g),
+         pair1),
+        ("CrossLayerP2PConvLight2", lambda g: ex_nn.CrossLayerP2PConvLight2(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        ("CrossLayerLightShift", lambda g: ex_nn.CrossLayerLightShift(
+            xn, c1, (c1, c1), (c1, c1), g), pair1),
+        # (c) the estimators; (d) the warp
+        *((name, lambda g, name=name: getattr(ex_nn, name)(
+            c1, c1, generator=g, **head), (xyz1, f1, cost1, flow1))
+          for name in ("SceneFlowEstimatorSepResidual",
+                       "SceneFlowEstimatorResidualBias",
+                       "SceneFlowEstimatorResidualSVD",
+                       "SceneFlowEstimatorSetconvResidual",
+                       "SceneFlowEstimatorResidualFactor",
+                       "SceneFlowEstimatorSetconvFuseResidual")),
+        ("SceneFlowEstimatorResidualSmooth", lambda g:
+         ex_nn.SceneFlowEstimatorResidualSmooth(c1, c1, c1, generator=g,
+                                                **head),
+         (xyz1, f1, bid1, cost1, flow1)),
+        ("SceneFlowEstimatorResidualOcc", lambda g:
+         ex_nn.SceneFlowEstimatorResidualOcc(c1, c1, 1, generator=g, **head),
+         (xyz1, f1, cost1, flow1, occ1)),
+        ("SceneFlowEstimatorPointConv", lambda g:
+         flowhead_nn.SceneFlowEstimatorPointConv(c1, c1, 3, generator=g,
+                                                 **head),
+         (xyz1, f1, cost1, flow1)),
+        ("SceneFlowEstimatorResidualIter", lambda g:
+         flowhead_nn.SceneFlowEstimatorResidualIter(c1, c1, generator=g,
+                                                    **head),
+         (xyz1, f1, cost1, flow1)),
+        ("ConvGRU", lambda g: ConvGRU(2 * c1, INVENTORY_GRU_HIDDEN, g),
+         (h1, torch.cat([f1, cost1], dim=-1))),
+        ("PointWarpingSimple", lambda g: ex_nn.PointWarpingSimple(),
+         (xyz1, xyz1b, flow1)),
+        # the pointnet2 API
+        ("PointnetSAModule", lambda g: pn2.PointnetSAModule(
+            n1, radius, fn, c0, (c1, c1), generator=g), (xyz0, f0)),
+        ("PointnetFPModule", lambda g: pn2.PointnetFPModule(
+            c1 + c0, (c1,), g), (xyz0, xyz1, f0, f1)),
+    ]
+    mods = []
+    for label, make, args in cases:
+        mod = make(torch.Generator().manual_seed(SEED))
+        if isinstance(mod, torch.nn.Module):
+            mod = mod.cuda().eval()
+        mods.append((label, mod, copy.deepcopy(mod), args))
+    # the main path: every module once through the kernels, the counts set
+    # to 0 just before and read just after
+    inv_calls = {n: [] for n in points}
+    inv_out, inv_mod_launches = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with swapped(recorder(inv_calls)), torch.no_grad():
+        for label, mod, _, args in mods:
+            before = dict(kernels.LAUNCHES)
+            inv_out.append(mod(*args))
+            inv_mod_launches.append({n: kernels.LAUNCHES[n] - before[n]
+                                     for n in ("fps", "knn")})
+    torch.cuda.synchronize()
+    inv_launches = dict(kernels.LAUNCHES)
+    log(f"  the inventory's forwards through the kernels: launches "
+        f"{inv_launches} over {len(mods)} modules")
+    check(inv_launches["fps"] > 0 and inv_launches["knn"] > 0
+          and not any(inv_launches[n] for n in ("pool", "pool_bwd")),
+          f"inventory launches {inv_launches}")
+    check(inv_launches["fps"] == len(inv_calls["fps"])
+          and inv_launches["knn"] == len(inv_calls["knn"]),
+          "inventory launches differ from its kernel calls")
+
+    def flat(out):
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    inv_rows = []
+    for (label, mod, twin, args), out_k, launched in zip(
+            mods, inv_out, inv_mod_launches):
+        with swapped(lambda n, entry, plain: plain), torch.no_grad():
+            out_p = twin(*args)
+        mx = med = 0.0
+        for a_, b_ in zip(flat(out_k), flat(out_p), strict=True):
+            check(a_.shape == b_.shape and bool(torch.isfinite(
+                a_.float()).all()), f"{label}: output {tuple(a_.shape)}")
+            if a_.is_floating_point():
+                diff = (a_ - b_).abs()
+                mx = max(mx, float(diff.max()))
+                med = max(med, float(diff.median()))
+            else:
+                check(torch.equal(a_, b_), f"{label}: indices differ")
+        check(mx <= 1e-3 and med <= 1e-5, f"{label}: {mx}, {med}")
+        ms = cuda_ms(lambda: mod(*args), INVENTORY_REPS, 1)
+        inv_rows.append(dict(module=label, launches=launched,
+                             max_abs=mx, median_abs=med, ms=ms))
+        log(f"  {label}: launches fps {launched['fps']} knn "
+            f"{launched['knn']}; kernels vs plain max abs {mx:.3g}, median "
+            f"{med:.3g}; forward {ms:.3f} ms; outputs "
+            + " ".join(str(tuple(o.shape)) for o in flat(out_k)))
+    del inv_out
+
+    # FPS and kNN bit-identical at each distinct site of the inventory
+    def distinct(calls_):
+        """The distinct sites (shapes and k) of calls_, each with its
+        number of calls."""
+        seen, count = {}, {}
+        for args in calls_:
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                        for a in args)
+            seen.setdefault(key, args)
+            count[key] = count.get(key, 0) + 1
+        return list(seen.values()), list(count.values())
+
+    def per_call(t, counts):
+        """time_sites' sums over distinct sites, each site's ms, plain ms
+        and bound taken as many times as the path called it."""
+        out = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, sites=[])
+        ops_ms = bytes_ms = 0.0
+        for row, n in zip(t["sites"], counts):
+            out["ms"] += n * row["ms"]
+            out["plain_ms"] += n * row["plain_ms"]
+            out["bound_ms"] += n * max(row["ops_ms"], row["bytes_ms"])
+            ops_ms += n * row["ops_ms"]
+            bytes_ms += n * row["bytes_ms"]
+            out["sites"].append(dict(row, launches=n))
+        out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        return out
+
+    (inv_fps_sites, fps_counts), (inv_knn_sites, knn_counts) = (
+        distinct(inv_calls["fps"]), distinct(inv_calls["knn"]))
+    for args in inv_fps_sites:
+        fps_identical(args, "inventory ")
+    for args in inv_knn_sites:
+        knn_identical(args)
+    log(f"  {len(inv_fps_sites)} FPS and {len(inv_knn_sites)} kNN sites "
+        f"(distinct B, S, N, k) bit-identical to fps_plain / knn_plain")
+    with torch.inference_mode():
+        inv_fps_times = per_call(time_sites("fps", inv_fps_sites),
+                                 fps_counts)
+        inv_knn_times = per_call(time_sites("knn", inv_knn_sites),
+                                 knn_counts)
+    k64 = [i for i, a in enumerate(inv_knn_sites) if a[0] == knn_mod.MAX_K]
+    check(len(k64) == 1, f"k = 64 sites {len(k64)}")
+    k64_times = per_call(dict(sites=[inv_knn_times["sites"][k64[0]]]),
+                         [knn_counts[k64[0]]])
+    k64_launches = knn_counts[k64[0]]
+    log(f"  the inventory's {inv_launches['fps']} FPS and "
+        f"{inv_launches['knn']} kNN launches: fps {inv_fps_times['ms']:.4f} "
+        f"ms, plain {inv_fps_times['plain_ms']:.4f}, bound "
+        f"{inv_fps_times['bound_ms']:.5f}; knn {inv_knn_times['ms']:.4f} "
+        f"ms, plain {inv_knn_times['plain_ms']:.4f}, bound "
+        f"{inv_knn_times['bound_ms']:.5f} (each site's events times its "
+        f"calls)")
+    log(f"  knn at the k = 64 site (CrossLocalTransLayer), a launch: "
+        f"{k64_times['ms'] / k64_launches:.4f} ms, plain "
+        f"{k64_times['plain_ms'] / k64_launches:.4f} ms, bound "
+        f"{k64_times['bound_ms'] / k64_launches:.5f} ms "
+        f"({k64_times['bound_by']}); {k64_launches} launches")
+    del inv_calls
+
+    # the kNN kernel alone over every k of the sweep: the l1 pair stacked
+    # (2048^2), one l0 cloud (8192^2), and duplicated points: 683 distinct
+    # points thrice at indices j, j + 683, j + 1366 (683 = 21 x 32 + 11,
+    # so the copies fall in other lanes), ties across lanes and, above
+    # k = 32, across the two entries of a lane
+    dup = torch.cat([xyz1, xyz1b])[:, torch.arange(n1, device="cuda") % 683]
+    sweep = {"l1 pair": torch.cat([xyz1, xyz1b]), "l0": xyz0,
+             "duplicated": dup.contiguous()}
+    tie_lanes = tie_entries = 0
+    for k_ in KNN_SWEEP:
+        for label, pts in sweep.items():
+            knn_identical((k_, pts, pts))
+            if label == "duplicated":
+                with torch.inference_mode():
+                    d_, i_ = cuda_fns["knn"](k_, pts, pts)
+                tie = d_[..., 1:] == d_[..., :-1]
+                lanes_ = knn_mod.knn_plan(pts.shape[0], n1, n1, k_)[0]
+                tie_lanes += int((tie & (i_[..., 1:] % lanes_
+                                         != i_[..., :-1] % lanes_)).sum())
+                if k_ > 32:
+                    pos = torch.arange(1, k_, device="cuda")
+                    tie_entries += int((tie & (pos % 2 == 1)).sum())
+    check(tie_lanes > 0 and tie_entries > 0,
+          f"the duplicated case has no ties across lanes ({tie_lanes}) or "
+          f"across a lane's two entries ({tie_entries})")
+    log(f"  kNN sweep k = {list(KNN_SWEEP)} over {', '.join(sweep)}: all "
+        f"bit-identical; tied pairs in the duplicated case's lists across "
+        f"lanes {tie_lanes}, across a lane's two entries (k > 32) "
+        f"{tie_entries}")
+    results["knn"]["match"] += (f"; the inventory's {len(inv_knn_sites)} "
+                                f"sites and k = {list(KNN_SWEEP)} at "
+                                f"2048^2 (B = 2), 8192^2 and on duplicated "
+                                f"points")
+    del sweep, dup, mods
+    log(f"  phase {time.monotonic() - t_phase:.1f} s")
+    deadline("inventory")
+
+    # ---------------------------------------------------------------- 25
     def timing(t, launches):
         row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
@@ -2328,7 +2708,16 @@ def main() -> int:
                 timing(ss_knn_times,
                        ss_launches[name] - PER_FORWARD[name]),
                 by_k=ss_knn_times["by_k"])}
-               if name == "knn" else {})))
+               if name == "knn" else {}),
+            **({"inventory": dict(
+                timing(inv_knn_times if name == "knn" else inv_fps_times,
+                       inv_launches[name]),
+                sites=[r["site"] for r in (
+                    inv_knn_times if name == "knn" else inv_fps_times)[
+                        "sites"]],
+                **({"k64": timing(k64_times, k64_launches)}
+                   if name == "knn" else {}))}
+               if name in ("fps", "knn") else {})))
     kernel_rows.append(dict(
         name="fps_pruned", route="cuda", **KERNEL_META["fps_pruned"],
         **timing(fp_times, kd_launches["fps_pruned"]),
@@ -2354,10 +2743,16 @@ def main() -> int:
         fast_kd_step=fast_feature,
         eval_forward={n: dict(ms=v["feature_knn_ms"],
                               sites=v["feature_sites"])
-                      for n, v in fg_eval.items()})]
-    log("[24/25 kernels]")
+                      for n, v in fg_eval.items()}), dict(
+        name="inventory", route="torch",
+        source="kd_pointcloud_tpu_torch/nn/experimental.py",
+        replaces="kd_pointcloud_tpu/nn/experimental.py (XLA around the "
+                 "FPS and kNN kernels)",
+        per="one forward a module, batch 1, l1 = 2048 points",
+        modules=inv_rows)]
+    log("[25/26 kernels]")
     log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
-    log(f"[25/25 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[26/26 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

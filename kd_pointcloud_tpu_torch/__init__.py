@@ -20,7 +20,10 @@ tooling around the model: the blocked-FPS relaxation (fps_blocks), the
 self-supervised loss (losses.selfsup), profiling and tracing (perf, with
 python -m kd_pointcloud_tpu_torch.cli.profile), the licensing band
 (eval.licensing), fixtures (utils.fixtures) and the raw-data
-preprocessors (data.preprocess). attic/ holds the ports of the JAX
+preprocessors (data.preprocess); and the experimental inventory: the
+ablation modules of nn.experimental and nn.vn_layers and the pointnet2
+API of ops.pointnet2_compat (ball query, three_nn, the SA and FP
+modules), on the FPS and kNN kernels. attic/ holds the ports of the JAX
 package's attic kernels, which no path runs.
 """
 

@@ -15,37 +15,41 @@
 // What bounds it on an H100: operations. Every query scores every key
 // (~10 instructions each, S*N per cloud), against 16 bytes a point of
 // traffic. The design gives each query L lanes (a group; L = 4 .. 32, a
-// power of two, K <= L) so that even a few hundred queries fill the card,
-// or, for K = 3 where the queries alone fill it, one (L = 1: a thread a
-// query scores every key in turn and inserts into its own registers):
+// power of two, K <= L, or L = 32 with 32 < K <= 64) so that even a few
+// hundred queries fill the card, or, for K = 3 where the queries alone fill
+// it, one (L = 1: a thread a query scores every key in turn and inserts into
+// its own registers):
 //
 // - Striped lanes. The key cloud streams through shared memory in tiles of
 //   2048 (x, y, z, |k|^2) float4s. A group scans a tile L keys a step, lane
 //   l taking key j0 + l, so one step covers L consecutive keys. A lane
 //   scores 4 steps before the warp votes once on whether any has a
 //   candidate: late in a scan almost none does.
-// - One sorted list a group, R entries a lane (R = 1; 3 at L = 1). Lane l
-//   holds the group's entries l R .. l R + R - 1 (distance, index); the
-//   K-th entry is the threshold. A key is a
+// - One sorted list a group, R entries a lane (R = 1; 3 at L = 1; 2 at
+//   L = 32 for 32 < K <= 64, the TPU kernel's largest K). Lane l holds the
+//   group's entries l R .. l R + R - 1 (distance, index); the K-th entry,
+//   at lane (K - 1) / R, slot (K - 1) % R, is the threshold that both the
+//   vote and the insert read. A key is a
 //   candidate if its distance is strictly below the threshold (an equal
 //   distance at a higher index never displaces an entry).
 // - Exact merge. A warp ballot finds the step's candidates; each group
 //   inserts its own one at a time, lowest lane (lowest key index) first:
 //   the candidate is broadcast with a shuffle, every entry strictly greater
-//   moves up one position (across lanes by __shfl_up_sync), and the first
-//   of them takes the candidate. So the list always equals a stable sort of
+//   moves up one position (inside a lane from slot r - 1 to slot r, across
+//   lanes from the previous lane's last slot by __shfl_up_sync), and the
+//   first of them takes the candidate. So the list always equals a stable sort of
 //   the keys seen so far by (distance, index), whatever the lane that found
 //   a key; a
 //   candidate is checked again against the threshold the earlier insertions
 //   of its step left. ops/knn.py knn_striped is this rule in torch.
 // - The launch plan (ops/knn.py knn_plan) picks L and the queries a block
 //   from (B, S, N, K): L = 1 for K = 3 when B * S alone gives 8 warps an
-//   SM, else L at least K rounded up to a power of two, doubled while B * S
-//   * L is short of filling 132 SMs; and up to 1024 threads a block so the
-//   key tiles are read from L2 once for many queries.
+//   SM, else L at least min(K, 32) rounded up to a power of two, doubled
+//   while B * S * L is short of filling 132 SMs; and up to 1024 threads a
+//   block so the key tiles are read from L2 once for many queries.
 //
-// A lane keeps one entry, not a K-long list, so the kernel needs few
-// registers whatever K is, and inserting costs one shuffle round for the
+// A lane keeps one or two entries, not a K-long list, so the kernel needs
+// few registers whatever K is, and inserting costs one shuffle round for the
 // whole group instead of a K-step register bubble in one divergent thread.
 // At L = 1 every lane is its own group, so one round inserts the
 // candidates of all 32 queries of a warp at once.
@@ -221,15 +225,16 @@ cudaError_t launch(const float* query, const float* keys, int b, int s, int n,
 }  // namespace
 
 // lanes (L) and qpb (queries a block) come from ops/knn.py knn_plan: L in
-// {4, 8, 16, 32} with k <= L (one list entry a lane), or L = 1 with k = 3
-// (a thread a query, its 3 entries in registers); L * qpb a multiple of 32
-// and at most 1024.
+// {4, 8, 16, 32} with k <= L (one list entry a lane), L = 32 with
+// 32 < k <= 64 (two entries a lane), or L = 1 with k = 3 (a thread a query,
+// its 3 entries in registers); L * qpb a multiple of 32 and at most 1024.
 extern "C" int kdpc_knn(const float* query, const float* keys, int b, int s,
                         int n, int k, int lanes, int qpb, int* out_idx,
                         float* out_d2, cudaStream_t stream) {
-  if (b <= 0 || s <= 0 || k <= 0 || k > n || (lanes == 1 ? k != 3 : k > lanes)
-      || qpb <= 0 ||
-      lanes * qpb > kMaxThreads || (lanes * qpb) % 32 != 0)
+  const int entries = lanes == 1 ? 3 : lanes == 32 ? 2 * lanes : lanes;
+  if (b <= 0 || s <= 0 || k <= 0 || k > n || k > entries ||
+      (lanes == 1 && k != 3) || qpb <= 0 || lanes * qpb > kMaxThreads ||
+      (lanes * qpb) % 32 != 0)
     return (int)cudaErrorInvalidValue;
   switch (lanes) {
     case 1:
@@ -245,6 +250,9 @@ extern "C" int kdpc_knn(const float* query, const float* keys, int b, int s,
       return (int)launch<16, 1>(query, keys, b, s, n, k, qpb, out_idx,
                                 out_d2, stream);
     case 32:
+      if (k > 32)
+        return (int)launch<32, 2>(query, keys, b, s, n, k, qpb, out_idx,
+                                  out_d2, stream);
       return (int)launch<32, 1>(query, keys, b, s, n, k, qpb, out_idx,
                                 out_d2, stream);
     default:

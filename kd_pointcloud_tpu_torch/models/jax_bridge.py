@@ -12,7 +12,11 @@ Conv kernel (3, in, out) becomes torch's conv1d (out, in, 3) and the
 DepthwiseReLU kernel (in, mult) becomes (mult, in); BatchNorm scale, bias,
 mean and var become weight, bias, running_mean and running_var;
 PointConvNonLinear's depthwise (C, 1) and depthwise_bias keep their names
-and shapes.
+and shapes. The experimental inventory's leaves follow the same rules: the
+ConvGRU's convz / convr / convq kernels (3, in, out) become (out, in, 3),
+the vector-neuron kernel / dir_kernel / frame_kernel (F_in, F_out) become
+weight / dir_weight / frame_weight (F_out, F_in), and PointConvBias's
+(1, 1, C, W) bias, not a kernel, keeps its shape.
 """
 
 from __future__ import annotations
@@ -23,21 +27,34 @@ from typing import Mapping
 import numpy as np
 import torch
 
-# applied in order to the '/'-joined flax path of every leaf
+# applied in order to the '/'-joined flax path of every leaf; an indexed
+# flax name X_0, X_1, X_2 ... becomes x, x1, x2 ...
 _RULES = (
     (re.compile(r"WeightNet_0/Dense_(\d+)"), r"weightnet/layers/\1"),
+    # the experimental inventory's named WeightNets
+    (re.compile(r"(weightnet\d+|p2p2)/Dense_(\d+)"), r"\1/layers/\2"),
     (re.compile(r"PointwiseBlock_(\d+)/Dense_0"), r"layers/\1/dense"),
     (re.compile(r"MLP_0"), "mlp"),
     (re.compile(r"PointConv_(\d+)"), r"convs/\1"),
+    # the inventory's flow-head blocks
+    (re.compile(r"(SepConv|PointConvBias|PointConvSVD|PointConvFactor"
+                r"|SetAbstract|SetAbstractFuse)_(\d+)"), r"convs/\2"),
+    (re.compile(r"FlowEmbeddingLayer_0"), "flow_embedding"),
+    (re.compile(r"VNLinearLeakyReLU_0"), "linear_leaky"),
+    (re.compile(r"VNLinearLeakyReLU_(\d+)"), r"linear_leaky\1"),
+    (re.compile(r"VNMaxPool_0"), "max_pool"),
+    (re.compile(r"VNBatchNorm_0"), "bn"),
     (re.compile(r"BatchNorm_0"), "bn"),
+    (re.compile(r"BatchNorm_(\d+)"), r"bn\1"),
     (re.compile(r"Dense_0"), "dense"),
-    (re.compile(r"Dense_1"), "dense1"),            # BottleNeck's second
+    (re.compile(r"Dense_(\d+)"), r"dense\1"),     # BottleNeck's Dense_1
     (re.compile(r"Conv_0"), "conv"),
     (re.compile(r"DepthwiseReLU_0"), "depthwise"),
 )
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
            "mean": "running_mean", "var": "running_var",
-           "depthwise": "depthwise", "depthwise_bias": "depthwise_bias"}
+           "depthwise": "depthwise", "depthwise_bias": "depthwise_bias",
+           "dir_kernel": "dir_weight", "frame_kernel": "frame_weight"}
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -54,8 +71,8 @@ def torch_key(flax_path: str) -> str:
     path = flax_path
     for pattern, repl in _RULES:
         path = pattern.sub(repl, path)
-    head, leaf = path.rsplit("/", 1)
-    return f"{head}/{_LEAVES[leaf]}".replace("/", ".")
+    head, _, leaf = path.rpartition("/")
+    return f"{head}/{_LEAVES[leaf]}".strip("/").replace("/", ".")
 
 
 def params_from_jax(variables: Mapping) -> dict:

@@ -1,18 +1,25 @@
-"""Neural modules of the port (every preset of the model family)."""
+"""Neural modules of the port (every preset of the model family, and the
+experimental inventory: nn/experimental.py, nn/vn_layers.py)."""
 
-from .blocks import (MLP, BottleNeck, Dense, DepthwiseReLU, PointwiseBlock,
-                     leaky)
+from .blocks import (MLP, BottleNeck, ConvGRU, Dense, DepthwiseReLU,
+                     PointwiseBlock, leaky)
 from .cross import (CrossLayerLight, CrossLayerLightFG, CrossLayerLightVote,
                     NoCrossLayerLight)
-from .flowhead import SceneFlowEstimatorResidual
+from .flowhead import (SceneFlowEstimatorPointConv, SceneFlowEstimatorResidual,
+                       SceneFlowEstimatorResidualIter)
 from .pointconv import (PointConv, PointConvD, PointConvDRand,
-                        PointConvNonLinear, contract_dense, group_knn)
+                        PointConvNonLinear, contract_dense, group_knn,
+                        weighted_contract)
 from .weightnet import WeightNet
 
 __all__ = [
-    "MLP", "BottleNeck", "Dense", "DepthwiseReLU", "PointwiseBlock", "leaky",
+    "MLP", "BottleNeck", "ConvGRU", "Dense", "DepthwiseReLU",
+    "PointwiseBlock", "leaky",
     "CrossLayerLight", "CrossLayerLightFG", "CrossLayerLightVote",
-    "NoCrossLayerLight", "SceneFlowEstimatorResidual", "PointConv",
-    "PointConvD", "PointConvDRand", "PointConvNonLinear",
-    "contract_dense", "group_knn", "WeightNet",
+    "NoCrossLayerLight",
+    "SceneFlowEstimatorPointConv", "SceneFlowEstimatorResidual",
+    "SceneFlowEstimatorResidualIter",
+    "PointConv", "PointConvD", "PointConvDRand", "PointConvNonLinear",
+    "contract_dense", "group_knn", "weighted_contract",
+    "WeightNet",
 ]

@@ -1,8 +1,9 @@
 """Basic building blocks on channels-last (B, N, C) tensors.
 
 Port of kd_pointcloud_tpu/nn/blocks.py: Dense, leaky (ops.leaky, slope 1 at
-0 as jax.nn.leaky_relu), PointwiseBlock, MLP, and the students' level
-block BottleNeck with its DepthwiseReLU branch. Weights follow torch's
+0 as jax.nn.leaky_relu), PointwiseBlock, MLP, the students' level block
+BottleNeck with its DepthwiseReLU branch, and the inventory's point-axis
+ConvGRU. Weights follow torch's
 Conv/Linear default init (kaiming_uniform(a=sqrt 5), i.e. U(+-1/sqrt(fan_in))
 for kernel and bias), drawn from an explicit torch.Generator.
 """
@@ -29,15 +30,19 @@ def _uniform_(p: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Module):
-    """Linear layer over the trailing axis; weight is (out, in)."""
+    """Linear layer over the trailing axis; weight is (out, in); no bias
+    where use_bias is False (flax's Dense(use_bias=False))."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                     else None)
         for p in (self.weight, self.bias):
-            _uniform_(p, in_features, generator)
+            if p is not None:
+                _uniform_(p, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -94,18 +99,22 @@ class DepthwiseReLU(nn.Module):
 
 class PointConv1d3(nn.Module):
     """A 3-tap convolution along the point axis of (B, N, C), zero padding
-    1 (flax nn.Conv, padding SAME), no bias; weight (out, in, 3), torch's
-    conv1d layout. Each batch row is convolved on its own, so clouds
-    stacked on the batch axis never mix."""
+    1 (flax nn.Conv, padding SAME); weight (out, in, 3), torch's conv1d
+    layout; a bias, zeros at init as flax's, where use_bias. Each batch row
+    is convolved on its own, so clouds stacked on the batch axis never
+    mix."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, 3))
         _uniform_(self.weight, 3 * in_features, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x.transpose(1, 2), self.weight,
+        return F.conv1d(x.transpose(1, 2), self.weight, self.bias,
                         padding=1).transpose(1, 2)
 
 
@@ -128,3 +137,25 @@ class BottleNeck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.dense1(self.conv(self.dense(x)))
         return torch.relu(h + x + self.depthwise(x))
+
+
+class ConvGRU(nn.Module):
+    """Point-axis GRU cell of the experimental inventory (the reference's
+    pointconv_util.py ConvGRU): z, r from the 3-tap convs convz / convr of
+    [h, x], q from convq of [r h, x], each conv followed by leaky; returns
+    (1 - z) h + z q. in_features: x's width."""
+
+    def __init__(self, in_features: int, hidden: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        width = hidden + in_features
+        self.convz = PointConv1d3(width, hidden, generator, use_bias=True)
+        self.convr = PointConv1d3(width, hidden, generator, use_bias=True)
+        self.convq = PointConv1d3(width, hidden, generator, use_bias=True)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hx = torch.cat([h, x], dim=-1)
+        z = torch.sigmoid(leaky(self.convz(hx)))
+        r = torch.sigmoid(leaky(self.convr(hx)))
+        q = torch.tanh(leaky(self.convq(torch.cat([r * h, x], dim=-1))))
+        return (1 - z) * h + z * q

@@ -1,8 +1,9 @@
 """PointConv layers: WeightNet-weighted continuous convolutions.
 
-Port of kd_pointcloud_tpu/nn/pointconv.py: group_knn, contract_dense,
-PointConv (same resolution), PointConvD (FPS downsampling, with the
-nested-FPS prefix and the blocked-FPS relaxation), PointConvNonLinear (its
+Port of kd_pointcloud_tpu/nn/pointconv.py: group_knn, weighted_contract
+(the experimental inventory's contraction), contract_dense, PointConv
+(same resolution), PointConvD (FPS downsampling, with the nested-FPS
+prefix and the blocked-FPS relaxation), PointConvNonLinear (its
 depthwise + pointwise factorisation, non_linear's l3 and l4) and
 PointConvDRand (the random-sampling ablation: the first npoint rows, no
 preset uses it). The (C, W) pair is flattened c-major into the Dense
@@ -31,6 +32,14 @@ def group_knn(nsample: int, xyz, query_xyz, feats, idx=None, rel=None):
     if rel is None:
         rel = group_points(xyz, idx) - query_xyz[:, :, None, :]
     return torch.cat([rel, group_points(feats, idx)], dim=-1), rel
+
+
+def weighted_contract(grouped: torch.Tensor, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """(B, S, K, C) x (B, S, K, W) -> (B, S, C * W), flattened c-major."""
+    B, S, _, C = grouped.shape
+    return torch.einsum("bskc,bskw->bscw", grouped, weights).reshape(
+        B, S, C * weights.shape[-1])
 
 
 def contract_dense(grouped: torch.Tensor, weights: torch.Tensor,
@@ -71,6 +80,20 @@ class _BatchNorm(nn.BatchNorm1d):
             self.num_batches_tracked += 1
         y = (flat - mean) * torch.rsqrt(var + self.eps) * self.weight
         return (y + self.bias).reshape(x.shape)
+
+
+class FixedModeBatchNorm(_BatchNorm):
+    """_BatchNorm held in one mode whatever train() or eval() asks: where
+    the JAX package fixes use_running_average at the call (the inventory's
+    heads and kernel aggregations)."""
+
+    def __init__(self, num_features: int, train: bool, **kw):
+        super().__init__(num_features, **kw)
+        self.fixed_mode = train
+        self.training = train
+
+    def train(self, mode: bool = True):
+        return super().train(self.fixed_mode)
 
 
 class PointConv(nn.Module):

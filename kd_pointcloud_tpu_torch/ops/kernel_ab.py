@@ -133,7 +133,8 @@ def other_knn(lib, k, xyz, query):
     knn_mod._check(k, xyz, query)
     kernels.check_on_card("knn", xyz, query)
     if k not in knn_mod.KERNEL_K:
-        raise ValueError(f"knn kernel takes k in {knn_mod.KERNEL_K}")
+        raise ValueError(f"knn kernel takes 1 <= k <= {knn_mod.MAX_K}, "
+                         f"got {k}")
     B, N, _ = xyz.shape
     S = query.shape[1]
     idx = torch.empty(B, S, k, dtype=torch.int32, device=xyz.device)

@@ -5,12 +5,13 @@ knn_point_dist with method="exact"). ``knn_plain`` is the plain version: a
 stable sort of the square_distance expansion, in query chunks of 2048 as
 the JAX package chunks it. The CUDA kernel is csrc/knn.cu: L lanes a query
 scan stripes of each key tile and keep one sorted list a group, one entry a
-lane, merging each step's candidates lowest index first (``knn_striped`` is
-that rule in torch, for the tests; ``knn_plan`` picks L and the queries a
-block). Both break ties toward the lower key index, as lax.top_k does;
-torch.topk
-promises no tie order, and at metric scale (|x|^2 ~ 1e3, so the expansion
-moves in steps of ~6e-5) equal distances among near neighbours are common.
+lane (two at L = 32 for k > 32), merging each step's candidates lowest index
+first (``knn_striped`` is that rule in torch, for the tests; ``knn_plan``
+picks L and the queries a block). It takes every k up to 64, as the TPU
+kernel (knn_fused) does. Both break ties toward the lower key index, as
+lax.top_k does; torch.topk promises no tie order, and at metric scale
+(|x|^2 ~ 1e3, so the expansion moves in steps of ~6e-5) equal distances
+among near neighbours are common.
 
 The TPU's approximate selection (lax.approx_min_k and the fused kernel's
 float-float mode) is not reproduced: the port's search is exact.
@@ -37,7 +38,8 @@ from . import kernels
 from .distance import square_distance
 from .gather import group_points
 
-KERNEL_K = (3, 5, 9, 10, 16, 32)
+MAX_K = 64                      # knn_fused's largest k
+KERNEL_K = range(1, MAX_K + 1)
 _CHUNK = 2048
 KERNEL_LANES = (1, 4, 8, 16, 32)   # lanes a query the kernel is built for
 ONE_LANE_K = 3                  # the k, and list entries, of L = 1
@@ -66,18 +68,19 @@ def knn_plan(B: int, S: int, N: int, k: int):
     """(lanes, queries a block) of the kNN kernel for B clouds of S queries
     over N keys. One lane a query (its 3 entries in registers) where
     k == ONE_LANE_K and B * S >= ONE_LANE_QUERIES; else lanes the smallest
-    power of two >= max(k, 4) (one list entry a lane), doubled up to 32
-    while B * S * lanes is short of FILL_THREADS. Queries a block: as many
-    as 1024 threads hold, halved while the grid has fewer than MIN_BLOCKS
-    blocks, never below one warp. N does not change the plan: a group's
-    time grows with N, its parallelism does not."""
-    if k > KERNEL_LANES[-1]:
-        raise ValueError(f"knn kernel takes k <= {KERNEL_LANES[-1]}, got {k}")
+    power of two >= max(min(k, 32), 4) (one list entry a lane, two where
+    k > 32), doubled up to 32 while B * S * lanes is short of FILL_THREADS.
+    Queries a block: as many as 1024 threads hold, halved while the grid
+    has fewer than MIN_BLOCKS blocks, never below one warp. N does not
+    change the plan: a group's time grows with N, its parallelism does
+    not."""
+    if k not in KERNEL_K:
+        raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
     if k == ONE_LANE_K and B * S >= ONE_LANE_QUERIES:
         lanes = 1
     else:
         lanes = 4
-        while lanes < k:
+        while lanes < min(k, KERNEL_LANES[-1]):
             lanes *= 2
         while lanes < KERNEL_LANES[-1] and B * S * lanes < FILL_THREADS:
             lanes *= 2
@@ -87,41 +90,62 @@ def knn_plan(B: int, S: int, N: int, k: int):
     return lanes, qpb
 
 
-def list_entries(lanes: int) -> int:
-    """Entries of a group's sorted list: one a lane, ONE_LANE_K at L = 1."""
-    return ONE_LANE_K if lanes == 1 else lanes
+def lane_entries(lanes: int, k: int) -> int:
+    """List entries a lane holds (R of knn_kernel<L, R>): ONE_LANE_K at
+    L = 1, two where k > L (L = 32 only), else one."""
+    if lanes == 1:
+        return ONE_LANE_K
+    return 2 if k > lanes else 1
+
+
+def list_entries(lanes: int, k: int) -> int:
+    """Entries of a group's sorted list at L lanes for this k."""
+    return lanes * lane_entries(lanes, k)
 
 
 def knn_striped(k: int, xyz: torch.Tensor, query: torch.Tensor, lanes: int):
     """The kernel's selection rule in torch, for the tests: the keys in
     steps of ``lanes`` consecutive indices, one per lane; the step's
-    candidates (distance strictly below the list's k-th) inserted lowest
-    lane first into one sorted list of list_entries(lanes) entries, after
-    every entry whose distance is not greater, each checked again against
-    the k-th entry that the earlier insertions left. Returns (d2, idx) like
-    knn_plain, which it equals bit for bit."""
+    candidates (distance strictly below the list's k-th entry, at lane
+    (k - 1) // R, slot (k - 1) % R) inserted lowest lane first into one
+    sorted list, R = lane_entries(lanes, k) entries a lane, after every
+    entry whose distance is not greater: an entry moves up from the slot
+    before it in its lane, or at slot 0 from the previous lane's last
+    slot, as read before the insert. Each candidate is checked again
+    against the k-th entry that the earlier insertions left. Returns
+    (d2, idx) like knn_plain, which it equals bit for bit."""
     B, S, N = query.shape[0], query.shape[1], xyz.shape[1]
     d_all = square_distance(query, xyz)                     # (B, S, N)
-    entries = list_entries(lanes)
-    ld = torch.full((B, S, entries), float("inf"), dtype=d_all.dtype)
-    li = torch.zeros(B, S, entries, dtype=torch.int32)
-    pos = torch.arange(entries)
+    R = lane_entries(lanes, k)
+    if k > lanes * R or (lanes == 1 and k != ONE_LANE_K):
+        raise ValueError(f"{lanes} lanes of {R} entries do not hold k={k}")
+    t_lane, t_slot = divmod(k - 1, R)
+    ld = torch.full((B, S, lanes, R), float("inf"), dtype=d_all.dtype)
+    li = torch.zeros(B, S, lanes, R, dtype=torch.int32)
+    # a position has a predecessor unless it is the group's first
+    has_prev = torch.arange(lanes * R).reshape(lanes, R) > 0
     for j0 in range(0, N, lanes):
         step = d_all[..., j0:j0 + lanes]
-        cand = step < ld[..., k - 1:k]
+        cand = step < ld[..., t_lane, t_slot, None]
         for src in range(step.shape[-1]):
-            cd = step[..., src:src + 1]
-            ins = cand[..., src:src + 1] & (cd < ld[..., k - 1:k])
-            up_d = torch.cat([ld[..., :1], ld[..., :-1]], dim=-1)
-            up_i = torch.cat([li[..., :1], li[..., :-1]], dim=-1)
-            take_up = (pos > 0) & (up_d > cd)
+            cd = step[..., src, None, None]
+            ins = (cand[..., src, None, None]
+                   & (cd < ld[..., t_lane, t_slot, None, None]))
+            # slot 0's predecessor: the previous lane's last slot (the
+            # kernel's __shfl_up_sync); slot r's: slot r - 1 of its lane
+            ud = torch.cat([ld[..., :1, -1:], ld[..., :-1, -1:]], dim=-2)
+            ui = torch.cat([li[..., :1, -1:], li[..., :-1, -1:]], dim=-2)
+            pd = torch.cat([ud, ld[..., :-1]], dim=-1)
+            pi = torch.cat([ui, li[..., :-1]], dim=-1)
+            take_up = has_prev & (pd > cd)
             move = ins & (ld > cd)
-            ld = torch.where(move, torch.where(take_up, up_d, cd), ld)
-            li = torch.where(move, torch.where(take_up, up_i,
+            ld = torch.where(move, torch.where(take_up, pd, cd), ld)
+            li = torch.where(move, torch.where(take_up, pi,
                                                torch.tensor(j0 + src,
                                                             dtype=li.dtype)),
                              li)
-    return ld[..., :k].contiguous(), li[..., :k].contiguous()
+    return (ld.reshape(B, S, -1)[..., :k].contiguous(),
+            li.reshape(B, S, -1)[..., :k].contiguous())
 
 
 def feature_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -184,9 +208,9 @@ def _check(k: int, xyz: torch.Tensor, query: torch.Tensor) -> None:
 
 def _knn_cuda(k: int, xyz: torch.Tensor, query: torch.Tensor):
     _check(k, xyz, query)
-    kernels.check_on_card("knn", xyz, query)
     if k not in KERNEL_K:
-        raise ValueError(f"knn kernel takes k in {KERNEL_K}, got {k}")
+        raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
+    kernels.check_on_card("knn", xyz, query)
     B, N, _ = xyz.shape
     S = query.shape[1]
     lanes, qpb = knn_plan(B, S, N, k)

@@ -7,13 +7,18 @@ step's name for a train loop. On the card the trace shows the port's
 kernels by their own names (fps_kernel, knn_kernel, pool_kernel, ...);
 CUPTI sees their ctypes launches as it sees PyTorch's.
 
-On an H100, in some processes, CUPTI lost the kernel records (not the
-launches' records) of the first 10 to 27 kernels of every profiler
-session; in others it lost none. So ``recording``, and
+On an H100, CUPTI at times loses the kernel records (not the launches'
+records) of the first kernels of a profiler session, and of the first
+kernels of the recorded step after a warm-up step. So ``recording``, and
 ``trace`` through it, records the block only after a warm-up step, whose
-records it discards, of ``WARM_UP_KERNELS`` tiny kernels; and ``trace``
-holds the trace to ``ops.kernels.LAUNCHES``: it raises when the trace
-holds another number of a port kernel's records than the block launched.
+records it discards, of ``WARM_UP_KERNELS`` tiny kernels, and after a
+settle of
+``SETTLE_KERNELS`` launches of torch.cuda._sleep's ``spin_kernel`` (no
+model launches it) at the start of the recorded step, which takes such a
+loss in the block's place: a reader of the trace leaves the settle's
+kernels out (``SETTLE_KERNEL``). ``trace`` holds the trace to
+``ops.kernels.LAUNCHES``: it raises when the trace holds another number
+of a port kernel's records than the block launched.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ _FIRST_KERNEL = re.compile(r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_mask"
                            r"|pool|cross_pool)_kernel(?=[<(I])")
 _COUNTER = {"pool_bwd_mask": "pool_bwd"}
 WARM_UP_KERNELS = 512
+SETTLE_KERNELS = 512
+SETTLE_KERNEL = "spin_kernel"         # torch.cuda._sleep's
 
 
 def kernel_records(events) -> dict:
@@ -56,17 +63,24 @@ def kernel_records(events) -> dict:
 
 @contextlib.contextmanager
 def recording(activities) -> Iterator[profile]:
-    """A torch.profiler profile of the block alone: its recording starts
-    after a warm-up step that, where the activities hold the card's,
-    launches WARM_UP_KERNELS kernels and waits for them."""
+    """A torch.profiler profile of the block: where the activities hold
+    the card's, its recording starts after a warm-up step that launches
+    WARM_UP_KERNELS kernels and waits for them, and the recorded step
+    opens with SETTLE_KERNELS launches of SETTLE_KERNEL, waited for,
+    before the block."""
+    on_card = ProfilerActivity.CUDA in activities
     with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        if ProfilerActivity.CUDA in activities:
+        if on_card:
             x = torch.zeros(1, device="cuda")
             for _ in range(WARM_UP_KERNELS):
                 x.add_(1)
             torch.cuda.synchronize()
         prof.step()
+        if on_card:
+            for _ in range(SETTLE_KERNELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         yield prof
 
 

@@ -238,6 +238,33 @@ def test_chip_smoke_imports_without_a_card():
             (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
+def test_chip_smoke_counts_unrecorded_launches_inside_the_forward():
+    """The trace check reads the launches inside the traced forward's
+    annotation: a lost record of the settle before it does not count, one
+    inside it does, and the report names its place and op."""
+    mod = _load_chip_smoke()
+
+    def launch(ts, corr):
+        return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+                "tid": 1, "args": {"correlation": corr}}
+
+    events = [
+        {"cat": "user_annotation", "name": mod.TRACED_FORWARD, "ts": 100,
+         "dur": 50, "tid": 1},
+        {"cat": "cpu_op", "name": "aten::cat", "ts": 118, "dur": 5,
+         "tid": 1},
+        launch(10, 1), launch(110, 2), launch(120, 3), launch(140, 4),
+        {"cat": "kernel", "name": "k", "args": {"correlation": 2}},
+        {"cat": "kernel", "name": "k", "args": {"correlation": 4}},
+    ]
+    assert mod.unrecorded_launches(events) == 2
+    assert mod.unrecorded_launches(events, mod.TRACED_FORWARD) == 1
+    assert len(mod._launches(events, mod.TRACED_FORWARD)) == 3
+    assert mod.unrecorded_detail(events, mod.TRACED_FORWARD) == \
+        "#1 of 3 (cudaLaunchKernel, in aten::cat)"
+    assert mod.unrecorded_launches(events, "no such annotation") == 0
+
+
 def test_chip_smoke_ptxas_summary():
     text = ("ptxas info    : Compiling entry function "
             "'_ZN12_GLOBAL__N_110knn_kernelILi32EEEvPKfS2_iiPiPf' for "

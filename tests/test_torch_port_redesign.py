@@ -33,6 +33,7 @@ from kd_pointcloud_tpu.ops.knn import knn_point_dist as jax_knn_dist
 from kd_pointcloud_tpu.ops.pallas import pool_fused as jax_pool
 from kd_pointcloud_tpu_torch.models import PRESETS
 from kd_pointcloud_tpu_torch.ops import knn as knn_mod
+from kd_pointcloud_tpu_torch.ops.distance import square_distance
 from kd_pointcloud_tpu_torch.ops.knn import knn_plain, knn_plan, knn_striped
 from kd_pointcloud_tpu_torch.ops.pool_fused import pool_bwd_masked, pool_plain
 
@@ -45,13 +46,22 @@ def _t(a):
 
 # ----------------------------------------------------------------------- kNN
 
+# the k of the model's paths
+PATH_K = (3, 5, 9, 10, 16, 32)
+# a sweep of KERNEL_K (1..64) beyond them: 1, 2, a lane count +- 1, the
+# inventory's 8 and 64, and 33-64 at two list entries a lane. Not every k
+# of 1..64: that would multiply the cases.
+SWEEP_K = (1, 2, 7, 8, 24, 31, 33, 48, 63, 64)
+
+
 def _lanes_the_plan_picks(k):
     return [L for L in knn_mod.KERNEL_LANES
-            if (L == 1 and k == knn_mod.ONE_LANE_K) or L >= max(k, 4)]
+            if (L == 1 and k == knn_mod.ONE_LANE_K)
+            or L >= max(min(k, 32), 4)]
 
 
-KNN_CASES = [(k, L) for k in knn_mod.KERNEL_K
-             for L in _lanes_the_plan_picks(k)]
+KNN_CASES = [(k, L) for k in PATH_K for L in _lanes_the_plan_picks(k)]
+SWEEP_CASES = [(k, L) for k in SWEEP_K for L in _lanes_the_plan_picks(k)]
 
 
 def _jax_idx(k, keys, query):
@@ -87,8 +97,69 @@ def _tied_cloud(rng, groups):
     return keys[None], query[None]
 
 
-@pytest.mark.parametrize("k,lanes", KNN_CASES,
-                         ids=[f"k{k}-L{L}" for k, L in KNN_CASES])
+@pytest.mark.parametrize("k,lanes", SWEEP_CASES,
+                         ids=[f"k{k}-L{L}" for k, L in SWEEP_CASES])
+def test_knn_striped_sweep_equals_plain(k, lanes):
+    """Every k of the sweep on generic floats: the kernel's rule (two
+    entries a lane above k = 32) bit-equal to knn_plain. JAX's exact kNN
+    is held in the next test, on floats where both sides' expansions are
+    exact: on generic floats its matrix product rounds a few ulps apart
+    from the port's per-op expansion, which can swap two neighbours whose
+    distances differ by less than that."""
+    rng = np.random.RandomState(100 * k + lanes)
+    keys = rng.uniform(-1, 1, (2, 301, 3)).astype(np.float32)
+    query = rng.uniform(-1, 1, (2, 40, 3)).astype(np.float32)
+    d_got, i_got = knn_striped(k, _t(keys), _t(query), lanes)
+    d_want, i_want = knn_plain(k, _t(keys), _t(query))
+    assert torch.equal(d_got, d_want) and torch.equal(i_got, i_want)
+
+
+def _dyadic_cloud(rng, n_keys, n_query):
+    """Coordinates on a 1/64 grid in [-1, 1], a third of the keys copies
+    of others at shuffled indices: every product and sum of the expansion
+    is exact in float32 in any order, so the port's and JAX's distances
+    are the same floats and equal distances (duplicates, and grid points
+    at equal distance) tie exactly on both sides."""
+    keys = rng.randint(-64, 65, (2, n_keys, 3)).astype(np.float32) / 64
+    dup = rng.choice(n_keys, n_keys // 3, replace=False)
+    keys[:, dup] = keys[:, rng.choice(n_keys, n_keys // 3)]
+    query = rng.randint(-64, 65, (2, n_query, 3)).astype(np.float32) / 64
+    return keys, query
+
+
+@pytest.mark.parametrize("k,lanes", SWEEP_CASES,
+                         ids=[f"k{k}-L{L}" for k, L in SWEEP_CASES])
+def test_knn_striped_sweep_matches_jax_on_exact_floats(k, lanes):
+    keys, query = _dyadic_cloud(np.random.RandomState(7 * k + lanes), 301,
+                                40)
+    d_got, i_got = knn_striped(k, _t(keys), _t(query), lanes)
+    d_want, i_want = knn_plain(k, _t(keys), _t(query))
+    assert torch.equal(d_got, d_want) and torch.equal(i_got, i_want)
+    jd, ji = jax_knn_dist(k, jnp.asarray(keys), jnp.asarray(query),
+                          method="exact")
+    np.testing.assert_array_equal(i_got.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(d_got.numpy(), np.asarray(jd))
+    _assert_ties_keep_the_lower_index(k, keys, query, d_got, i_got)
+
+
+def _assert_ties_keep_the_lower_index(k, keys, query, d_got, i_got):
+    """The case is what it claims: exact ties inside the lists, listed
+    lower index first; at k = 1 a tie for the nearest key, won by the
+    lowest index."""
+    d, i = d_got.numpy(), i_got.numpy()
+    if k == 1:
+        full = square_distance(_t(query), _t(keys)).numpy()
+        tie = (full == full.min(-1, keepdims=True)).sum(-1) > 1
+        assert tie.any()
+        np.testing.assert_array_equal(i[..., 0], full.argmin(-1))
+        return
+    tie = d[..., 1:] == d[..., :-1]
+    assert tie.any() and (i[..., 1:] > i[..., :-1])[tie].all()
+
+
+@pytest.mark.parametrize("k,lanes", KNN_CASES + SWEEP_CASES,
+                         ids=[f"k{k}-L{L}"
+                              for k, L in KNN_CASES + SWEEP_CASES])
 def test_knn_striped_ties_across_lanes_keep_the_lower_index(k, lanes):
     keys, query = _tied_cloud(np.random.RandomState(k + lanes), 40)
     d_got, i_got = knn_striped(k, _t(keys), _t(query), lanes)
@@ -97,10 +168,10 @@ def test_knn_striped_ties_across_lanes_keep_the_lower_index(k, lanes):
     np.testing.assert_array_equal(i_got.numpy(), _jax_idx(k, keys, query))
     # the case is what it claims: tied neighbours found by different lanes,
     # listed lower index first
+    _assert_ties_keep_the_lower_index(k, keys, query, d_got, i_got)
     d, i = d_got[0].numpy(), i_got[0].numpy()
     tie = d[:, 1:] == d[:, :-1]
-    assert tie.any() and (i[:, 1:] > i[:, :-1])[tie].all()
-    if lanes > 1:
+    if lanes > 1 and k > 1:
         assert ((i[:, 1:] % lanes) != (i[:, :-1] % lanes))[tie].any()
 
 
@@ -133,7 +204,7 @@ def test_knn_plan_fits_the_card_at_every_path_site(batch):
         lanes, qpb = knn_plan(B, S, N, k)
         threads = lanes * qpb
         assert lanes in knn_mod.KERNEL_LANES and 32 % lanes == 0
-        assert k <= knn_mod.list_entries(lanes)
+        assert k <= knn_mod.list_entries(lanes, k)
         assert threads <= 1024 and threads % 32 == 0
         # one lane only where the queries alone fill the card; else the
         # card is filled, or every query has all 32 lanes
@@ -143,6 +214,34 @@ def test_knn_plan_fits_the_card_at_every_path_site(batch):
             assert lanes == 32 or B * S * lanes >= knn_mod.FILL_THREADS
         picked.add(lanes)
     assert 32 in picked
+
+
+def test_knn_sweep_is_inside_the_kernel_range():
+    assert set(PATH_K + SWEEP_K) <= set(knn_mod.KERNEL_K)
+    assert list(knn_mod.KERNEL_K) == list(range(1, 65))
+
+
+@pytest.mark.parametrize("B,S,N", [(1, 2048, 2048), (2, 2048, 2048),
+                                   (1, 8192, 8192), (2, 64, 256)])
+def test_knn_plan_takes_32_lanes_of_two_entries_above_k32(B, S, N):
+    for k in (33, 48, 63, 64):
+        lanes, qpb = knn_plan(B, S, N, k)
+        assert lanes == 32 and knn_mod.lane_entries(lanes, k) == 2
+        assert knn_mod.list_entries(lanes, k) == 64
+        assert lanes * qpb <= 1024 and (lanes * qpb) % 32 == 0
+    for k in (1, 2, 31, 32):
+        assert knn_mod.lane_entries(knn_plan(B, S, N, k)[0], k) == 1
+    with pytest.raises(ValueError):
+        knn_plan(B, S, N, 65)
+
+
+def test_knn_kernel_guard_refuses_k_above_64():
+    keys = torch.zeros(1, 128, 3)
+    query = torch.zeros(1, 4, 3)
+    with pytest.raises(ValueError, match="k <= 64"):
+        knn_mod._knn_cuda(65, keys, query)
+    with pytest.raises(ValueError):
+        knn_striped(65, keys, query, 32)
 
 
 def test_knn_plan_keeps_few_lanes_only_where_the_queries_fill_the_card():
