@@ -20,7 +20,9 @@ six-metric eval and the checkpoint; then the tooling around the model: the
 blocked-FPS relaxation (fps_blocks), the self-supervised loss's backward
 through a student, the profile entry, a trace, and raw frames through the
 preprocessors to the eval; then the experimental inventory's modules and
-the pointnet2 API on the FPS and kNN kernels, the kNN up to k = 64 -- and
+the pointnet2 API on the FPS and kNN kernels, the kNN up to k = 64; then
+the teacher's train step on a data mesh (an NCCL world of one rank, and a
+gloo world of two ranks on the one card) -- and
 holds each hand-written kernel against its plain PyTorch version. Phases, each printing flushed lines as
 it goes:
 
@@ -193,7 +195,23 @@ it goes:
      31, 33, 48, 63, 64 over the l1 pair (2048^2, B = 2), an l0 cloud
      (8192^2) and duplicated points (ties across lanes and across a lane's
      two entries), each bit-identical, with its plan;
- 25. one {"kernels": [...], "plain_ops": [...]} line (times per KD step
+ 25. the data mesh (mesh): the teacher's train step through
+     parallel/ at full width and 8192 points -- (a) an NCCL process group
+     of one rank in this process, batch_size_per_device 3: the mesh step
+     (gradients all-reduced over NCCL) against the no-mesh step on the same
+     batch and weights, loss within 1e-5 relative, gradients within
+     GRAD_TOL, BatchNorm statistics within 1e-5, launches (FPS 1, kNN 19,
+     pool 12, pool_bwd 12), and both timed in turns (2 warm-up and 5 timed
+     steps each) with dp_step_model's analytic step at 2, 4 and 8 cards;
+     (b) a gloo world of two spawned ranks, both on cuda:0 (NCCL refuses
+     two ranks a card), global batch 4 (2 a rank): each rank's loss,
+     gradients and BatchNorm statistics against one step over the same 4
+     rows in this process under the same gates (a gradient leaf within
+     GRAD_TOL plus what moving pos1 by one ulp moves that leaf of the
+     one-device step: float32 max and kNN choices flip where the forward
+     rounds differently), equal on both ranks, and each rank's launches;
+ 26. one {"kernels": [...], "plain_ops": [...]} line (the mesh step's
+     launches beside each path kernel's row; times per KD step
      for the kernels of the paths, the train step's, the eval forward's,
      the student KD step's and the fast KD step's beside them, the pool's
      C = 16 sites, each workflow run's launches, and the tooling phase's
@@ -201,7 +219,7 @@ it goes:
      phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step and
      FG eval pair; FPS and kNN at the inventory's sites, the k = 64 site,
      and the inventory modules' forwards);
- 26. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
+ 27. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
 Every number is measured in this run. Float32 products run in full float32
 (no TF32). It exits non-zero, printing no result, when there is no card,
@@ -214,10 +232,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import faulthandler
 import importlib.util
 import json
 import math
+import multiprocessing
 import re
 import shutil
 import statistics
@@ -289,6 +309,14 @@ INVENTORY_GRU_HIDDEN = 128
 INVENTORY_RADII = (1.0, 1.25, 1.5, 2.0, 2.5, 3.0)
 INVENTORY_REPS = 3
 KNN_SWEEP = (1, 2, 7, 8, 24, 31, 33, 48, 63, 64)
+# the mesh phase: batch_size_per_device 3 on an NCCL world of one rank; a
+# gloo world of MESH_RANKS ranks on cuda:0 at a global batch of
+# MESH_BATCH; the cards dp_step_model is asked about; every collective and
+# join fails after MESH_TIMEOUT_S
+MESH_STEPS, MESH_WARMUP = 5, 2
+MESH_RANKS, MESH_BATCH = 2, 4
+DP_CARDS = (2, 4, 8)
+MESH_TIMEOUT_S = 120
 # device against host eval path: the same forward, metrics in torch on the
 # card against numpy on the host (float32 sums in another order)
 EVAL_PATHS_RTOL = 1e-5
@@ -550,12 +578,11 @@ def zero_gradient_leaf(name: str) -> bool:
             and name.endswith("dense.bias"))
 
 
-def compare_grads(model_k, model_p) -> tuple:
-    """Every gradient leaf of model_k (a step through the kernels) against
-    model_p's (the plain versions): error / the leaf's max |plain| within
-    GRAD_TOL, zero-gradient leaves below 1e-5 of the largest gradient.
-    Returns (worst ratio, its leaf, median ratio, leaves, zero leaves,
-    largest gradient)."""
+def leaf_errors(model_k, model_p) -> tuple:
+    """Each gradient leaf of model_k against model_p's: error / the leaf's
+    max |model_p|, zero-gradient leaves below 1e-5 of the largest gradient
+    (checked, and left out). Returns ({leaf: ratio}, zero leaves, largest
+    gradient)."""
     import torch
 
     grads_p = {n: p.grad for n, p in model_p.named_parameters()}
@@ -572,8 +599,21 @@ def compare_grads(model_k, model_p) -> tuple:
             continue
         rels[name] = (float((gk - gp).abs().max())
                       / max(float(gp.abs().max()), 1e-30))
+    return rels, zero_leaves, top
+
+
+def compare_grads(model_k, model_p, allow=None) -> tuple:
+    """Every gradient leaf of model_k (a step through the kernels) against
+    model_p's (the plain versions): error / the leaf's max |plain| within
+    GRAD_TOL, plus allow[leaf] where given; zero-gradient leaves below 1e-5
+    of the largest gradient. Returns (worst ratio, its leaf, median ratio,
+    leaves, zero leaves, largest gradient)."""
+    rels, zero_leaves, top = leaf_errors(model_k, model_p)
+    allow = allow or {}
+    for n, r in rels.items():
+        bound = GRAD_TOL + allow.get(n, 0.0)
+        check(r <= bound, f"gradient {n}: {r} (bound {bound})")
     worst = max(rels, key=rels.get)
-    check(rels[worst] <= GRAD_TOL, f"gradient {worst}: {rels[worst]}")
     return (rels[worst], worst, statistics.median(rels.values()), len(rels),
             zero_leaves, top)
 
@@ -589,6 +629,40 @@ def compare_stats(model_k, model_p) -> float:
             err = max(err, float((buf - want).abs().max())
                       / max(float(want.abs().max()), 1e-30))
     return err
+
+
+def mesh_rank(rank: int, world: int, init_file: str, out: str, cfg,
+              device: str = "cuda", n_points: int = N_POINTS) -> None:
+    """One rank of the mesh phase's gloo world on device (cuda:0 for all
+    ranks on the card): the train step of a cfg model (seed SEED) through
+    parallel/ on its rows of the global batch; saves its loss, launches,
+    gradients and buffers to out."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from kd_pointcloud_tpu_torch.models import BidPointFlowNet
+    from kd_pointcloud_tpu_torch.ops import kernels
+    from kd_pointcloud_tpu_torch.parallel import init_mesh, shard_batch
+    from kd_pointcloud_tpu_torch.train import make_optimizer, make_train_step
+    from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
+
+    torch.set_num_threads(1)
+    dev = "cuda:0" if device == "cuda" else device
+    mesh = init_mesh(rank, world, f"file://{init_file}", dev, backend="gloo",
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    model = BidPointFlowNet(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(model, make_optimizer(model), mesh=mesh)
+    batch = shard_batch(mesh, synthetic_batches(1, MESH_BATCH, n_points,
+                                                SEED + 5, dev)[0])
+    kernels.reset_launches()
+    loss = float(step(batch))
+    torch.save(dict(loss=loss, launches=dict(kernels.LAUNCHES),
+                    rows=batch["pos1"].shape[0],
+                    grads={n: p.grad.cpu() for n, p in
+                           model.named_parameters()},
+                    buffers={n: b.cpu() for n, b in model.named_buffers()}),
+               out)
 
 
 def workflow(device: str, n_points: int = N_POINTS, ft3d=None, kitti=None,
@@ -891,6 +965,168 @@ def preprocess_eval(device: str, n_points: int = N_POINTS, ft3d=None,
     return out
 
 
+def mesh_phase(tmp: str, cfg, device: str = "cuda",
+               n_points: int = N_POINTS, card: str = "") -> dict:
+    """Phase 25: the train step of a cfg model (the teacher) on a data
+    mesh. (a) an NCCL world of one rank here (gloo off the card) against
+    the no-mesh step, and both timed in turns; (b) a gloo world of
+    MESH_RANKS spawned ranks on cuda:0 against one step over the same
+    global batch here. card (nvidia-smi's name and power limit) heads the
+    timing line. Returns the launches of (a)'s step and of each rank's,
+    and (a)'s ms a step."""
+    import torch
+    import torch.distributed as dist
+
+    from kd_pointcloud_tpu_torch.models import BidPointFlowNet
+    from kd_pointcloud_tpu_torch.ops import kernels
+    from kd_pointcloud_tpu_torch.parallel import (init_mesh,
+                                                  resolve_global_batch,
+                                                  shard_batch)
+    from kd_pointcloud_tpu_torch.parallel.cost_model import (dp_step_model,
+                                                             param_bytes_of)
+    from kd_pointcloud_tpu_torch.train import make_optimizer, make_train_step
+    from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
+
+    dev = "cuda:0" if device == "cuda" else device
+
+    def teacher():
+        return BidPointFlowNet(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+
+    # (b)'s ranks start first: each takes seconds to reach the card
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, MESH_RANKS, f"{tmp}/gloo", f"{tmp}/rank{r}.pt", cfg, device,
+        n_points), daemon=True) for r in range(MESH_RANKS)]
+    for proc in procs:
+        proc.start()
+    try:
+        # (a) NCCL, world 1, in this process
+        mesh = init_mesh(0, 1, f"file://{tmp}/nccl", dev,
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        backend = dist.get_backend(mesh.group)
+        global_bs = resolve_global_batch(TRAIN_BATCH, True, mesh.size)
+        want_backend = "nccl" if device == "cuda" else "gloo"
+        check(mesh.size == 1 and mesh.group is not None
+              and backend == want_backend and global_bs == TRAIN_BATCH,
+              f"the mesh: size {mesh.size}, backend {backend}, global "
+              f"batch {global_bs}")
+        batch = synthetic_batches(1, global_bs, n_points, SEED + 1, dev)[0]
+        m_mesh = teacher()
+        m_none = copy.deepcopy(m_mesh)
+        step_mesh = make_train_step(m_mesh, make_optimizer(m_mesh),
+                                    mesh=mesh)
+        step_none = make_train_step(m_none, make_optimizer(m_none))
+        rows = shard_batch(mesh, batch)
+        kernels.reset_launches()
+        loss_m = float(step_mesh(rows))
+        launches = dict(kernels.LAUNCHES)
+        loss_n = float(step_none(batch))
+        want = (PER_TRAIN_STEP if device == "cuda"
+                else dict.fromkeys(kernels.LAUNCHES, 0))
+        log(f"[25/27 mesh] (a) {backend} world of {mesh.size} rank, "
+            f"batch_size_per_device {TRAIN_BATCH}: the teacher's train step "
+            f"through the mesh, {n_points} points, launches {launches}")
+        check(launches == want,
+              f"mesh step launches {launches}, expected {want}")
+        log(f"  loss mesh {loss_m:.9g}, no mesh {loss_n:.9g}")
+        check(abs(loss_m - loss_n) <= 1e-5 * abs(loss_n),
+              "mesh step loss differs")
+        worst, leaf, median, n_leaves, _, _ = compare_grads(m_mesh, m_none)
+        bn_err = compare_stats(m_mesh, m_none)
+        log(f"  gradients: {n_leaves} leaves, error / max|no mesh| worst "
+            f"{worst:.3g} ({leaf}), median {median:.3g} (bound {GRAD_TOL}); "
+            f"BatchNorm statistics {bn_err:.3g} (bound 1e-5)")
+        check(bn_err <= 1e-5, f"BatchNorm statistics differ: {bn_err}")
+        for _ in range(MESH_WARMUP):
+            step_none(batch)
+            step_mesh(rows)
+        times = {"no mesh": [], "mesh": []}
+        turns = (("no mesh", step_none, batch), ("mesh", step_mesh, rows))
+        for i in range(MESH_STEPS):
+            for label, fn, b in turns[::1 if i % 2 == 0 else -1]:
+                t = time.perf_counter()         # float() synchronised
+                float(fn(b))
+                times[label].append((time.perf_counter() - t) * 1e3)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"  {card or dev}: {MESH_STEPS} steps each after "
+            f"{MESH_WARMUP + 1} warm-up, in turns: ms a step median mesh "
+            f"{med['mesh']:.3f} (min "
+            f"{min(times['mesh']):.3f}), no mesh {med['no mesh']:.3f} (min "
+            f"{min(times['no mesh']):.3f})")
+        nbytes = param_bytes_of(m_mesh)
+        for n in DP_CARDS:
+            model_ = dp_step_model(n, nbytes, med["mesh"])
+            log(f"  analytic (dp_step_model, NVLink 4 at 450 GB/s a way, "
+                f"not measured) {n} cards: all-reduce "
+                f"{model_['allreduce_ms']:.4f} ms of "
+                f"{model_['grad_mbytes']:.2f} MB, step "
+                f"{model_['expected_step_ms_serial']:.3f} ms serial, "
+                f"efficiency {model_['scaling_efficiency_serial']:.4f}")
+        dist.destroy_process_group()
+        del m_mesh, m_none, step_mesh, step_none
+
+        # (b) gloo, world 2, on cuda:0; the reference: one step over the
+        # same global batch here, and the control: that step again with
+        # pos1 moved by one ulp
+        whole = synthetic_batches(1, MESH_BATCH, n_points, SEED + 5, dev)[0]
+        ref, control = teacher(), teacher()
+        loss_r = float(make_train_step(ref, make_optimizer(ref))(whole))
+        nudged = dict(whole, pos1=torch.nextafter(
+            whole["pos1"], torch.full_like(whole["pos1"], math.inf)))
+        make_train_step(control, make_optimizer(control))(nudged)
+        spread, _, _ = leaf_errors(control, ref)
+        log(f"  (b) control: the world-1 step on pos1 moved by one ulp, "
+            f"gradients worst {max(spread.values()):.3g}, median "
+            f"{statistics.median(spread.values()):.3g} of the leaf's max; "
+            f"the step's own rounding moves this much")
+        for proc in procs:
+            proc.join(MESH_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    check(all(proc.exitcode == 0 for proc in procs),
+          f"gloo ranks exited with {[proc.exitcode for proc in procs]}")
+    got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(MESH_RANKS)]
+    rank_launches = [g["launches"] for g in got]
+    log(f"  (b) gloo world of {MESH_RANKS} spawned ranks on {dev}, global "
+        f"batch {MESH_BATCH} ({[g['rows'] for g in got]} rows a rank): "
+        f"launches a rank {rank_launches}")
+    for r, g in enumerate(got):
+        check(g["launches"] == want, f"rank {r} launches {g['launches']}")
+        holder = teacher()
+        for n, p in holder.named_parameters():
+            p.grad = g["grads"][n].to(dev)
+        with torch.no_grad():
+            for n, b in holder.named_buffers():
+                b.copy_(g["buffers"][n])
+        rels, _, _ = leaf_errors(holder, ref)
+        past = sorted(n for n, v in rels.items() if v > GRAD_TOL)
+        worst, leaf, median, n_leaves, _, _ = compare_grads(holder, ref,
+                                                            allow=spread)
+        bn_err = compare_stats(holder, ref)
+        within = ", ".join(f"{n} {rels[n]:.3g}, control {spread[n]:.3g}"
+                           for n in past) or "none"
+        log(f"  rank {r}: loss {g['loss']:.9g} (one device {loss_r:.9g}); "
+            f"gradients worst {worst:.3g} ({leaf}), median {median:.3g}; "
+            f"{len(past)} of {n_leaves} leaves past {GRAD_TOL}, each within "
+            f"it plus the control's error there ({within}); BatchNorm "
+            f"statistics {bn_err:.3g}")
+        check(abs(g["loss"] - loss_r) <= 1e-5 * abs(loss_r),
+              f"rank {r} loss differs")
+        check(bn_err <= 1e-5, f"rank {r} BatchNorm statistics: {bn_err}")
+    same = all(torch.equal(got[0]["grads"][n], g["grads"][n])
+               for g in got[1:] for n in got[0]["grads"]) and all(
+        torch.equal(got[0]["buffers"][n], g["buffers"][n])
+        for g in got[1:] for n in got[0]["buffers"])
+    check(same, "the ranks' gradients or statistics differ")
+    log("  every rank holds the same gradients and statistics, bit for bit")
+    return dict(launches=launches, rank_launches=rank_launches,
+                ms=med["mesh"], no_mesh_ms=med["no mesh"])
+
+
 def main() -> int:
     t0 = time.monotonic()
     import torch
@@ -959,7 +1195,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/26 device] {kind}, count {count}, torch {torch.__version__}, "
+    log(f"[1/27 device] {kind}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     use_full_fp32()
@@ -969,7 +1205,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     kernels.lib()
     info = kernels.BUILD_INFO
-    log(f"[2/26 build] {len(kernels.sources())} sources, one nvcc process "
+    log(f"[2/27 build] {len(kernels.sources())} sources, one nvcc process "
         f"each, all at once, and one link: {info['seconds']:.1f} s"
         f"{' (cached)' if info['cached'] else ''}")
     for line in ptxas_summary(info["log"]):
@@ -1059,7 +1295,7 @@ def main() -> int:
     want_sites = {n: PER_FORWARD[n] for n in points}
     check(got == want_sites, f"call sites per forward {got}, "
           f"expected {want_sites}")
-    log(f"[3/26 kernels vs plain] call sites of one eval forward: {got}")
+    log(f"[3/27 kernels vs plain] call sites of one eval forward: {got}")
 
     def site(name, args):
         if name in ("fps", "fps_pruned"):
@@ -1294,7 +1530,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want = {n: PER_FORWARD.get(n, 0) * N_METRIC_PAIRS for n in eval_launches}
-    log(f"[4/26 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
+    log(f"[4/27 eval path] evaluate_model over {N_METRIC_PAIRS} pairs of "
         f"{N_POINTS} points: launches {eval_launches} (per forward "
         f"{ {n: c / N_METRIC_PAIRS for n, c in eval_launches.items()} })")
     check(eval_launches == want, f"launches {eval_launches}, expected {want}")
@@ -1348,7 +1584,7 @@ def main() -> int:
                            else "bytes")
         return tot
 
-    log(f"[5/26 eval timing] CUDA events, {REPS} launches after warm-up "
+    log(f"[5/27 eval timing] CUDA events, {REPS} launches after warm-up "
         f"(plain: {PLAIN_REPS}); bound = max(ops / {PEAK_FP32_FLOPS:.3g}, "
         f"bytes / {PEAK_BYTES_S:.3g}) per call site")
     eval_times = {}
@@ -1395,7 +1631,7 @@ def main() -> int:
                     for args in kd_pool["pool"]]
     check(len(kd_bwd_sites) == PER_FORWARD["pool"],
           f"pool sites of a batch-{KD_BATCH} forward {len(kd_bwd_sites)}")
-    log(f"[6/26 pool backward vs plain] {len(bwd_sites)} pool call sites of "
+    log(f"[6/27 pool backward vs plain] {len(bwd_sites)} pool call sites of "
         f"a batch-{TRAIN_BATCH} and {len(kd_bwd_sites)} of a batch-"
         f"{KD_BATCH} train forward, seeded cotangents; error / max|plain| of "
         f"d_u, d_v, d_weight, d_bias (bound {POOL_BWD_TOL})")
@@ -1422,7 +1658,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(step_k(batch))
     train_launches = dict(kernels.LAUNCHES)
-    log(f"[7/26 train path] one train step at batch {TRAIN_BATCH}, "
+    log(f"[7/27 train path] one train step at batch {TRAIN_BATCH}, "
         f"{N_POINTS} points: launches {train_launches}")
     check(train_launches == PER_TRAIN_STEP,
           f"launches {train_launches}, expected {PER_TRAIN_STEP}")
@@ -1502,7 +1738,7 @@ def main() -> int:
             f"{chain:.4f} ms")
         return times
 
-    time_steps(step_k, batch, "8/26 train timing", "train step", TRAIN_BATCH)
+    time_steps(step_k, batch, "8/27 train timing", "train step", TRAIN_BATCH)
     train_times = time_path(dict(tcalls, pool_bwd=bwd_sites), "train step")
     del tmodel, opt_k, step_k, batch
     deadline("train timing")
@@ -1518,7 +1754,7 @@ def main() -> int:
                  "clustered": clustered}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/26 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
+    log(f"[9/27 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
         "indices against fps_plain and the FPS kernel, skipped sub-block "
         "updates against the plain version")
     attic = {"fps_pruned": {}, "cross_pool": {}}
@@ -1618,7 +1854,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(kd_step(kd_batch))
     kd_launches = dict(kernels.LAUNCHES)
-    log(f"[10/26 KD path] one distill step, teacher -> lighttoken_res, "
+    log(f"[10/27 KD path] one distill step, teacher -> lighttoken_res, "
         f"batch {KD_BATCH}, {N_POINTS} points, {KD_LOSS} {KD_ARGS}: "
         f"launches {kd_launches}")
     check(kd_launches == PER_KD_STEP,
@@ -1650,7 +1886,7 @@ def main() -> int:
     deadline("KD path")
 
     # ---------------------------------------------------------------- 11
-    time_steps(kd_step, kd_batch, "11/26 KD timing", "KD step", KD_BATCH)
+    time_steps(kd_step, kd_batch, "11/27 KD timing", "KD step", KD_BATCH)
     kd_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(student).train()
     with swapped(recorder(kd_calls)), torch.no_grad():
@@ -1686,7 +1922,7 @@ def main() -> int:
     b_launches = dict(kernels.LAUNCHES)
     with swapped(lambda n, entry, plain: plain):
         loss_p = float(b_steps[1](kd_batch))
-    log(f"[12/26 bridge KD step] Bridge({width} -> 512) on the teacher's "
+    log(f"[12/27 bridge KD step] Bridge({width} -> 512) on the teacher's "
         f"layer-{layer} features, batch {KD_BATCH}: launches {b_launches}; "
         f"loss kernels {loss_k:.9g}, plain {loss_p:.9g}")
     check(b_launches == PER_KD_STEP and kernels.LAUNCHES == b_launches,
@@ -1728,7 +1964,7 @@ def main() -> int:
     flows_equal = all(torch.equal(x, y) for x, y in zip(a, b))
     opt_equal = (fresh_opt.state_dict()["state"][0]["step"]
                  == kd_opt.state_dict()["state"][0]["step"])
-    log(f"[13/26 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
+    log(f"[13/27 checkpoint] {Path(path).name}: epoch {epoch}, best EPE "
         f"{best_epe:.4f}, best_checkpoint finds it "
         f"{best_checkpoint(str(ckpt_dir)) == path}; restored state equal "
         f"{same_state}, Adam step counts equal {opt_equal}, eval flows "
@@ -1755,7 +1991,7 @@ def main() -> int:
     c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
     check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
           f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
-    log(f"[14/26 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
+    log(f"[14/27 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
     for line in ptxas_summary(info["log"]):
@@ -1790,7 +2026,7 @@ def main() -> int:
     loss_k = float(s_step(kd_batch))
     s_launches = dict(kernels.LAUNCHES)
     s_widths = dict(sorted(kernels.WIDTH_LAUNCHES.items()))
-    log(f"[15/26 student KD path] one distill step, teacher -> student, "
+    log(f"[15/27 student KD path] one distill step, teacher -> student, "
         f"batch {KD_BATCH}, {N_POINTS} points, {STUDENT_LOSS} "
         f"{STUDENT_LOSS_ARGS}: launches {s_launches}; by width {s_widths}")
     check(s_launches == PER_KD_STEP,
@@ -1828,7 +2064,7 @@ def main() -> int:
     deadline("student KD path")
 
     # ---------------------------------------------------------------- 16
-    time_steps(s_step, kd_batch, "16/26 student KD timing", "KD step",
+    time_steps(s_step, kd_batch, "16/27 student KD timing", "KD step",
                KD_BATCH)
     s_calls = {n: [] for n in points}
     rec_student = copy.deepcopy(s_model).train()
@@ -1867,7 +2103,7 @@ def main() -> int:
     deadline("student KD timing")
 
     # ---------------------------------------------------------------- 17
-    log(f"[17/26 student presets' eval forwards] batch 1, {N_POINTS} "
+    log(f"[17/27 student presets' eval forwards] batch 1, {N_POINTS} "
         f"points, through evaluate_model, each against its plain versions; "
         f"{', '.join(TIMED_PRESETS)} timed over {N_TIMED_PAIRS} pairs")
     teacher_knn = sorted(site("knn", args) for args in calls["knn"])
@@ -1916,7 +2152,7 @@ def main() -> int:
         deadline(f"{name} eval forward")
 
     # ---------------------------------------------------------------- 18
-    log(f"[18/26 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
+    log(f"[18/27 FG eval forwards] {', '.join(FG_PRESETS)} at batch 1, "
         f"{N_POINTS} points, through evaluate_model, each against its plain "
         f"versions and timed over {N_TIMED_PAIRS} pairs")
     fg_eval = {}
@@ -1988,7 +2224,7 @@ def main() -> int:
     kernels.reset_launches()
     loss_k = float(f_step(kd_batch))
     f_launches = dict(kernels.LAUNCHES)
-    log(f"[19/26 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
+    log(f"[19/27 fast KD path] one make_fast_distill_step, {FAST_TEACHER} "
         f"-> {FAST_STUDENT}, batch {KD_BATCH}, {N_POINTS} points, "
         f"att_iter_loss {FAST_KD_ARGS}: launches {f_launches}")
     check(f_launches == per_fast,
@@ -2019,7 +2255,7 @@ def main() -> int:
     deadline("fast KD path")
 
     # ---------------------------------------------------------------- 20
-    time_steps(f_step, kd_batch, "20/26 fast KD timing", "fast KD step",
+    time_steps(f_step, kd_batch, "20/27 fast KD timing", "fast KD step",
                KD_BATCH)
     f_calls, f_feat = {n: [] for n in points}, []
     rec_student = copy.deepcopy(f_student).train()
@@ -2066,7 +2302,7 @@ def main() -> int:
     deadline("fast KD timing")
 
     # ---------------------------------------------------------------- 21
-    log(f"[21/26 no_cross and vote eval forwards] batch 1, {N_POINTS} "
+    log(f"[21/27 no_cross and vote eval forwards] batch 1, {N_POINTS} "
         "points, through evaluate_model, each against its plain versions")
     for name in ABLATION_PRESETS:
         amodel = BidPointFlowNet(
@@ -2089,7 +2325,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 22
     t_phase = time.monotonic()
-    log(f"[22/26 workflow] the cli entries (train with resume, evaluate, "
+    log(f"[22/27 workflow] the cli entries (train with resume, evaluate, "
         f"the device and host eval paths, distill, distill_bridge, "
         f"fast_distill) at {N_POINTS} points and full width, on seeded "
         f"trees")
@@ -2120,7 +2356,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 23
     t_phase = time.monotonic()
-    log(f"[23/26 tooling] fps_blocks={FPS_BLOCKS}, the self-supervised "
+    log(f"[23/27 tooling] fps_blocks={FPS_BLOCKS}, the self-supervised "
         f"loss through a student, the profile entry, a trace, raw frames to "
         f"the eval; {N_POINTS} points, full width")
     # blocked FPS: l1's 8192 -> 2048 as blocks of 1024 -> 256, the stacked
@@ -2371,7 +2607,7 @@ def main() -> int:
     n0, n1 = teacher.npoints[:2]
     c0, c1 = teacher.level_channels[:2]
     fn, xn = teacher.feat_nei, teacher.flow_nei
-    log(f"[24/26 inventory] the experimental inventory and the pointnet2 API "
+    log(f"[24/27 inventory] the experimental inventory and the pointnet2 API "
         f"at the teacher's widths: l1 {n1} points a cloud (FPS of the "
         f"{n0}-point pair), C = {c1}, feat_nei {fn}, flow_nei {xn}, heads "
         f"{INVENTORY_HEAD_K} neighbours; down-samplers {n0} -> {n1} at "
@@ -2671,6 +2907,16 @@ def main() -> int:
     deadline("inventory")
 
     # ---------------------------------------------------------------- 25
+    t_phase = time.monotonic()
+    mesh_dir = tempfile.mkdtemp(prefix="kdpc_mesh_")
+    try:
+        mesh_res = mesh_phase(mesh_dir, PRESETS["teacher"], card=smi)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    log(f"  phase {time.monotonic() - t_phase:.1f} s")
+    deadline("mesh")
+
+    # ---------------------------------------------------------------- 25
     def timing(t, launches):
         row = dict(launches=launches, ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
@@ -2709,6 +2955,10 @@ def main() -> int:
                        ss_launches[name] - PER_FORWARD[name]),
                 by_k=ss_knn_times["by_k"])}
                if name == "knn" else {}),
+            mesh_train_step_launches=dict(
+                nccl_world_1=mesh_res["launches"][name],
+                gloo_world_2_per_rank=[r[name] for r in
+                                       mesh_res["rank_launches"]]),
             **({"inventory": dict(
                 timing(inv_knn_times if name == "knn" else inv_fps_times,
                        inv_launches[name]),
@@ -2750,9 +3000,9 @@ def main() -> int:
                  "FPS and kNN kernels)",
         per="one forward a module, batch 1, l1 = 2048 points",
         modules=inv_rows)]
-    log("[25/26 kernels]")
+    log("[26/27 kernels]")
     log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
-    log(f"[26/26 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
+    log(f"[27/27 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")
     log(smi)
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

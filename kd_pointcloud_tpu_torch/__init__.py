@@ -23,8 +23,10 @@ python -m kd_pointcloud_tpu_torch.cli.profile), the licensing band
 preprocessors (data.preprocess); and the experimental inventory: the
 ablation modules of nn.experimental and nn.vn_layers and the pointnet2
 API of ops.pointnet2_compat (ball query, three_nn, the SA and FP
-modules), on the FPS and kNN kernels. attic/ holds the ports of the JAX
-package's attic kernels, which no path runs.
+modules), on the FPS and kNN kernels; and data parallelism (parallel:
+a torch.distributed mesh, the JAX package's batch plans and the
+global-batch step on every rank, under torchrun). attic/ holds the ports
+of the JAX package's attic kernels, which no path runs.
 """
 
 __version__ = "0.1.0"

@@ -9,10 +9,12 @@ on the model's device beside the forward; the sweep keeps the per-sample
 rows there and syncs once at the end, masking the loader's pad rows
 (PAD_PATH). ``device_metrics=False`` is the host path: the forward on the
 device, numpy metrics on worker threads, as the reference computes them,
-for cross-checking. Unlike the JAX package's host path, it leaves pad rows
-out too and takes each sample's own loss, so both paths average the same
-numbers (JAX's host path counts pad rows, and on a padded KITTI batch
-looks for a calib file named after the pad path).
+for cross-checking. With a data mesh (parallel/), the device path runs
+data-parallel: each rank its rows of every batch, the per-sample rows
+gathered onto every rank. Unlike the JAX package's host path, the host
+path leaves pad rows out too and takes each sample's own loss, so both
+paths average the same numbers (JAX's host path counts pad rows, and on a
+padded KITTI batch looks for a calib file named after the pad path).
 
 With no scene on disk, ``synthetic_pairs`` makes seeded 8192-point pairs,
 and ``pairs_loader`` turns pairs into batch-1 loader batches whose paths
@@ -30,6 +32,7 @@ import torch
 from ..data.loader import PAD_PATH
 from ..device import use_full_fp32
 from ..losses import multi_scale_loss_per_sample
+from ..parallel import Mesh, gather_rows, shard_batch
 from ..utils.logging import AverageMeter
 from .geometry import (FT3D_INTRINSICS, INTRINSIC_KEYS, get_batch_2d_flow,
                        is_kitti, read_kitti_intrinsics)
@@ -131,21 +134,40 @@ def _log(logger, results) -> None:
 
 def evaluate_model(model, loader, logger=None, with_2d: bool = True,
                    metric_workers: int = 2, device_metrics: bool = True,
-                   calib_dir: Optional[str] = None) -> Dict[str, float]:
+                   calib_dir: Optional[str] = None,
+                   mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """The six metrics and the mean multi-scale loss over loader's batches
     (pos1, pos2, norm1, norm2, flow, paths), weighted by real samples: rows
     whose path is PAD_PATH do not count. with_2d=False leaves out EPE2D and
-    ACC2D. calib_dir holds the KITTI calib files (KITTI scenes only)."""
+    ACC2D. calib_dir holds the KITTI calib files (KITTI scenes only).
+
+    mesh: the device path runs data-parallel over it (every rank returns
+    the single-device numbers). It needs loader batch_size % mesh.size == 0
+    and pad_last=True, so that every batch divides; otherwise the sweep
+    falls back to every rank running whole batches, and logs it."""
     device = next(model.parameters()).device
     if device_metrics:
+        if mesh is not None and mesh.size > 1 and (
+                getattr(loader, "batch_size", 0) % mesh.size != 0
+                or not getattr(loader, "pad_last", False)):
+            if logger is not None:
+                logger.info(
+                    "evaluate_model: loader batch_size=%s incompatible with "
+                    "%d-device mesh (needs batch_size %% mesh.size == 0 and "
+                    "pad_last=True); falling back to single-device",
+                    getattr(loader, "batch_size", None), mesh.size)
+            mesh = None
         step = make_eval_metrics_step(model, with_2d=with_2d)
         rows: List[torch.Tensor] = []
         masks: List[np.ndarray] = []
         for pos1, pos2, norm1, norm2, flow, paths in loader:
             intr = (_intrinsics_for(paths, calib_dir) if with_2d else
                     np.zeros((pos1.shape[0], 6), np.float32))
-            rows.append(step(*_to_device(
-                (pos1, pos2, norm1, norm2, flow, intr), device)))
+            arrays = (pos1, pos2, norm1, norm2, flow, intr)
+            if mesh is not None:
+                arrays = shard_batch(mesh, arrays)
+            row = step(*_to_device(arrays, device))
+            rows.append(row if mesh is None else gather_rows(mesh, row))
             masks.append(np.asarray([p != PAD_PATH for p in paths],
                                     np.float32))
         stacked = torch.cat(rows).cpu().numpy()          # one sync

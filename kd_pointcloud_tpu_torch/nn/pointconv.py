@@ -12,11 +12,14 @@ kernel, as the reference's .view(B, N, -1) does.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
 from ..ops import (furthest_point_sample, furthest_point_sample_blocked,
                    gather_points, group_points, knn_point)
+from ..parallel.collectives import moments
 from .blocks import Dense, _uniform_, leaky
 from .weightnet import WeightNet
 
@@ -67,19 +70,47 @@ class _BatchNorm(nn.BatchNorm1d):
     nn.BatchNorm semantics: in train mode it normalises with the batch's
     biased variance and also moves running_var toward that biased variance
     (torch's own BatchNorm moves it toward the unbiased one). Eval mode is
-    torch's, on the running statistics."""
+    torch's, on the running statistics.
+
+    Inside batch_stats_over(model, mesh) on a mesh of several ranks, train
+    mode takes the mean and the biased variance over the global batch's
+    rows, pad rows included, as the JAX package's sharded step does, and
+    every rank moves its running statistics toward those same values."""
+
+    mesh = None         # set by batch_stats_over for the step's forward
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
         if not self.training:
             return super().forward(flat).reshape(x.shape)
-        var, mean = torch.var_mean(flat, dim=0, correction=0)
+        if self.mesh is not None and self.mesh.size > 1:
+            var, mean = moments(self.mesh, flat)
+        else:
+            var, mean = torch.var_mean(flat, dim=0, correction=0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         y = (flat - mean) * torch.rsqrt(var + self.eps) * self.weight
         return (y + self.bias).reshape(x.shape)
+
+
+@contextlib.contextmanager
+def batch_stats_over(model: nn.Module, mesh):
+    """Within the block, every _BatchNorm of model (and so every BatchNorm
+    of the port's models) takes its train-mode statistics over mesh's
+    global batch; mesh None or of size 1 changes nothing."""
+    if mesh is None or mesh.size == 1:
+        yield
+        return
+    norms = [m for m in model.modules() if isinstance(m, _BatchNorm)]
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 class FixedModeBatchNorm(_BatchNorm):

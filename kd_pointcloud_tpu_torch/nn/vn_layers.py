@@ -69,7 +69,8 @@ class VNLeakyReLU(nn.Module):
 class VNBatchNorm(nn.Module):
     """Normalises vector magnitudes with a BatchNorm over the per-channel
     norms, keeping directions; train or eval statistics by the module's
-    mode."""
+    mode. Its BatchNorm is a _BatchNorm, so on a data mesh
+    (pointconv.batch_stats_over) the statistics are the global batch's."""
 
     def __init__(self, features: int):
         super().__init__()

@@ -11,6 +11,13 @@ eval() (BatchNorm on its running statistics, which never move) under
 torch.no_grad(), so no autograd graph is recorded for it and its pool
 launches no backward kernel; it is never switched to train(). The student
 runs in train().
+
+On a data mesh (parallel/) each rank runs the teacher and the student on
+its rows, and the loss -- each of the 13 KD losses -- is evaluated on every
+rank over the gathered outputs of the global batch (parallel.GatheredView),
+so batch sums, products of batch means and the t_history normalisation
+are the global batch's; the student's (and the Bridge's) gradients are
+averaged over the ranks, as train/loop.py make_train_step does.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 from ..device import use_full_fp32
 from ..losses import (att_iter_loss, bridge_ht_loss,
                       cross_bidirection_loss_ht)
+from ..nn.pointconv import batch_stats_over
+from ..parallel import Mesh, global_view, sync_grads
 
 
 def _forward(model, batch):
@@ -37,7 +46,8 @@ def apply_frozen(t_model, batch: Dict[str, torch.Tensor]):
 
 def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
                       beta: float = 0.8, layer=(2, 3),
-                      loss_fn: Optional[Callable] = None):
+                      loss_fn: Optional[Callable] = None,
+                      mesh: Optional[Mesh] = None):
     """fn(batch) -> loss (detached): the frozen teacher's forward, the
     student's forward in train mode, loss_fn(s_out, t_out, batch), backward
     and one optimizer step of the student.
@@ -48,7 +58,10 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
     features: it needs hint layers twice the teacher's width, and with the
     shipped teacher / lighttoken_res pairing (equal widths) it raises a
     shape error, as in the reference and the JAX package. The shipped
-    config selects biDirection_loss_ht (make_named_loss)."""
+    config selects biDirection_loss_ht (make_named_loss).
+
+    With mesh, batch holds this rank's rows and loss_fn sees the global
+    batch's outputs and batch."""
     use_full_fp32()
 
     def default_loss(s_out, t_out, batch):
@@ -63,8 +76,12 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
         t_out = apply_frozen(t_model, batch)
         s_model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(_forward(s_model, batch), t_out, batch)
+        with batch_stats_over(s_model, mesh):
+            s_out = _forward(s_model, batch)
+        loss = loss_fn(global_view(mesh, s_out), global_view(mesh, t_out),
+                       global_view(mesh, batch))
         loss.backward()
+        sync_grads(mesh, s_model.parameters())
         optimizer.step()
         return loss.detach()
 
@@ -72,7 +89,7 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
 
 
 def make_fast_distill_step(t_model, s_model, optimizer, gamma: float = 0.6,
-                           layers=(1, 2)):
+                           layers=(1, 2), mesh: Optional[Mesh] = None):
     """fn(batch) -> loss (detached): the attentive per-iteration KD step of
     an iterative teacher (bifeat) into a student (fg), as make_distill_step
     with att_iter_loss(gamma, layers): the student's flow at each of
@@ -85,12 +102,14 @@ def make_fast_distill_step(t_model, s_model, optimizer, gamma: float = 0.6,
                              t_out["flows"], t_out["fps_idx1"], gamma,
                              layers)
 
-    return make_distill_step(t_model, s_model, optimizer, loss_fn=loss_fn)
+    return make_distill_step(t_model, s_model, optimizer, loss_fn=loss_fn,
+                             mesh=mesh)
 
 
 def make_bridge_distill_step(t_model, s_model, bridge, s_optimizer,
                              b_optimizer, gamma: float = 0.3,
-                             beta: float = 0.8, layer: int = 3):
+                             beta: float = 0.8, layer: int = 3,
+                             mesh: Optional[Mesh] = None):
     """fn(batch) -> loss (detached): the Bridge mixes the frozen teacher's
     layer-`layer` features of both clouds, and bridge_ht_loss hints the
     student's features at that layer towards them.
@@ -99,7 +118,10 @@ def make_bridge_distill_step(t_model, s_model, bridge, s_optimizer,
     never flow (distillBridge.py:173-175), the bridge trains jointly through
     the hint loss with its own optimizer, as in the JAX package. With
     b_optimizer=None the bridge is frozen: it runs without autograd and
-    keeps its parameters."""
+    keeps its parameters.
+
+    With mesh, batch holds this rank's rows; the Bridge runs on this rank's
+    teacher features and the loss on the global batch's."""
     use_full_fp32()
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -108,16 +130,21 @@ def make_bridge_distill_step(t_model, s_model, bridge, s_optimizer,
         s_optimizer.zero_grad(set_to_none=True)
         if b_optimizer is not None:
             b_optimizer.zero_grad(set_to_none=True)
-        s_out = _forward(s_model, batch)
+        with batch_stats_over(s_model, mesh):
+            s_out = global_view(mesh, _forward(s_model, batch))
         with torch.set_grad_enabled(b_optimizer is not None):
-            br1, br2 = bridge(t_out["feat1s"][layer], t_out["feat2s"][layer])
+            br = global_view(mesh, dict(zip(("br1", "br2"), bridge(
+                t_out["feat1s"][layer], t_out["feat2s"][layer]))))
+        t_out, batch = global_view(mesh, t_out), global_view(mesh, batch)
         loss = bridge_ht_loss(s_out["flows"], s_out["feat1s"],
                               s_out["feat2s"], s_out["fps_idx1"],
-                              batch["flow"], t_out["flows"], br1, br2,
-                              gamma, beta, layer)
+                              batch["flow"], t_out["flows"], br["br1"],
+                              br["br2"], gamma, beta, layer)
         loss.backward()
+        sync_grads(mesh, s_model.parameters())
         s_optimizer.step()
         if b_optimizer is not None:
+            sync_grads(mesh, bridge.parameters())
             b_optimizer.step()
         return loss.detach()
 

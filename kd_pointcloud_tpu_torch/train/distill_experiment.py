@@ -6,6 +6,16 @@ distill() builds a frozen teacher and a trainable student, runs the epoch
 loop with the mode's KD step, evaluates the student each epoch (fast mode:
 every FAST_RATIO-th epoch inside [FAST_FROM, FAST_UNTIL]) and checkpoints it
 on best EPE; make_named_loss and compute_teacher_history are its pieces.
+
+In a process group (torchrun) the loop is data-parallel as train_teacher's
+is, with the JAX package's rule for KD (parallel.data_parallel_sharding):
+batch_size_per_device: true scales the batch by the world size, and a
+global batch that does not divide over the ranks is not sharded -- every
+rank then computes the whole batch, and the run logs it (on the card the
+pool backward's float atomics let the ranks' copies drift apart by
+rounding there). The frozen teacher
+is replicated, the student's and the Bridge's gradients are averaged over
+the ranks, and rank 0 alone writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -19,13 +29,15 @@ import torch
 from .. import losses as loss_lib
 from ..device import resolve_device
 from ..models import PRESETS, BidPointFlowNet, Bridge
-from ..utils import Config, blue, make_experiment_dir, make_logger
+from ..parallel import (Mesh, data_parallel_sharding, global_view, make_mesh,
+                        replicate, resolve_global_batch)
+from ..utils import Config, blue
 from .checkpoints import (full_state_tree, load_weights, restore_train_state,
                           save_checkpoint)
 from .distill import (apply_frozen, make_bridge_distill_step,
                       make_distill_step, make_fast_distill_step)
 from .experiment import (build_datasets, build_loaders, resume_epoch,
-                         run_epoch)
+                         run_dir_and_logger, run_epoch)
 from .loop import batch_to_device, eval_sceneflow, make_eval_step
 from .state import make_optimizer, set_learning_rate, step_lr
 
@@ -39,19 +51,23 @@ MODE_PRESETS = {"standard": ("teacher", "lighttoken_res"),
 
 
 def compute_teacher_history(t_model, loader: Iterable,
-                            max_batches: Optional[int] = None) -> list:
+                            max_batches: Optional[int] = None,
+                            mesh: Optional[Mesh] = None) -> list:
     """The frozen teacher's multi-scale loss on each batch of loader
     (numpy batches, pos1, pos2, norm1, norm2, flow, paths), which
-    attentiveImitationLoss normalises by (distilTrain.py:142)."""
+    attentiveImitationLoss normalises by (distilTrain.py:142). With mesh,
+    each rank runs its rows and every rank gets the global batch's loss:
+    the same history as on one device."""
     device = next(t_model.parameters()).device
     history = []
     for i, batch_np in enumerate(loader):
         if max_batches is not None and i >= max_batches:
             break
-        batch = batch_to_device(batch_np, device)
-        out = apply_frozen(t_model, batch)
+        batch = batch_to_device(batch_np, device, mesh=mesh)
+        out = global_view(mesh, apply_frozen(t_model, batch))
         history.append(float(loss_lib.multi_scale_loss(
-            out["flows"], batch["flow"], out["fps_idx1"])))
+            out["flows"], global_view(mesh, batch)["flow"],
+            out["fps_idx1"])))
     return history
 
 
@@ -124,14 +140,22 @@ def distill(args: Config, mode: str = "standard", device="cuda",
     t_preset = args.get("teacher_preset", t_preset)
     s_preset = args.get("student_preset", s_preset)
 
-    run_dir = make_experiment_dir(args.get("experiment_dir", "./experiment"),
-                                  args.model_name, tag=f"-KD-{mode}")
-    logger = make_logger(f"{args.model_name}_kd_{mode}",
-                         osp.join(run_dir, "logs", "train_kd.txt"))
+    mesh = make_mesh(devices=device)
+    run_dir, logger = run_dir_and_logger(
+        mesh, args.get("experiment_dir", "./experiment"), args.model_name,
+        f"{args.model_name}_kd_{mode}", "train_kd.txt", tag=f"-KD-{mode}")
     logger.info("PARAMETER ... %s", dict(args))
 
     train_ds, val_ds = build_datasets(args)
-    train_loader, val_loader = build_loaders(args, train_ds, val_ds)
+    global_bs = resolve_global_batch(
+        args.batch_size, args.get("batch_size_per_device", False), mesh.size)
+    train_loader, val_loader = build_loaders(args, train_ds, val_ds,
+                                             global_bs)
+    # the KD losses reduce over the batch, so a global batch that does not
+    # divide over the mesh runs unsharded (distilTrain.py:108-114's
+    # DataParallel gating, as the JAX package has it)
+    mesh, sharding = data_parallel_sharding(global_bs, logger, mesh)
+    step_mesh = sharding.mesh if sharding is not None else None
     # drawn as the JAX package draws it (to initialise its models), so both
     # packages see the same shuffles; the bridge's width is read from it
     first = next(iter(train_loader))
@@ -163,6 +187,10 @@ def distill(args: Config, mode: str = "standard", device="cuda",
         init_epoch = resume_epoch(ckpt_epoch, best_epe)
         logger.info("student resume from %s (epoch %d, best epe %.4f)",
                     args.pretrain, init_epoch, best_epe)
+    replicate(mesh, t_model)
+    replicate(mesh, s_model)
+    if mode == "bridge":
+        replicate(mesh, bridge)
 
     if mode == "standard":
         # the reference default cross_biDirection_loss_ht needs student hint
@@ -173,20 +201,22 @@ def distill(args: Config, mode: str = "standard", device="cuda",
         t_history = None
         if loss_name == "attentiveImitationLoss":
             t_history = compute_teacher_history(
-                t_model, train_loader, max_batches=args.get("history_batches"))
+                t_model, train_loader, max_batches=args.get("history_batches"),
+                mesh=step_mesh)
         step = make_distill_step(
             t_model, s_model, optimizer,
             loss_fn=lambda s_out, t_out, b: named(s_out, t_out, b,
-                                                  t_history=t_history))
+                                                  t_history=t_history),
+            mesh=step_mesh)
     elif mode == "fast":
         step = make_fast_distill_step(
             t_model, s_model, optimizer, gamma=args.get("gamma", 0.6),
-            layers=tuple(args.get("hint_layers", (1, 2))))
+            layers=tuple(args.get("hint_layers", (1, 2))), mesh=step_mesh)
     else:
         step = make_bridge_distill_step(
             t_model, s_model, bridge, optimizer, b_opt,
             gamma=args.get("gamma", 0.3), beta=args.get("beta", 0.8),
-            layer=layer)
+            layer=layer, mesh=step_mesh)
 
     eval_step = make_eval_step(s_model)
     history = []
@@ -196,7 +226,8 @@ def distill(args: Config, mode: str = "standard", device="cuda",
             t0 = time.perf_counter()
             lr = step_lr(args.learning_rate, epoch)
             set_learning_rate(optimizer, lr)
-            rec = run_epoch(step, train_loader, device, max_steps_per_epoch)
+            rec = run_epoch(step, train_loader, device, max_steps_per_epoch,
+                            mesh=step_mesh)
             logger.info("EPOCH %d %s mean loss: %f", epoch, blue("train"),
                         rec["loss"])
             rec.update(epoch=epoch, lr=lr, epe=None, eval_loss=None,
@@ -208,17 +239,19 @@ def distill(args: Config, mode: str = "standard", device="cuda",
             if do_eval:
                 t_eval = time.perf_counter()
                 rec["epe"], rec["eval_loss"] = eval_sceneflow(
-                    eval_step, val_loader, device)
+                    eval_step, val_loader, device, mesh=step_mesh)
                 rec["eval_s"] = time.perf_counter() - t_eval
                 logger.info("EPOCH %d %s mean epe3d: %f  eval loss: %f",
                             epoch, blue("eval"), rec["epe"],
                             rec["eval_loss"])
                 if rec["epe"] < best_epe:
                     best_epe = rec["epe"]
-                    rec["checkpoint"] = save_checkpoint(
-                        osp.join(run_dir, "checkpoints"), "S", epoch,
-                        best_epe, full_state_tree(s_model, optimizer, epoch,
-                                                  best_epe, extra=extra))
+                    if mesh.is_main:
+                        rec["checkpoint"] = save_checkpoint(
+                            osp.join(run_dir, "checkpoints"), "S", epoch,
+                            best_epe, full_state_tree(s_model, optimizer,
+                                                      epoch, best_epe,
+                                                      extra=extra))
                     logger.info("Save model to %s", rec["checkpoint"])
             rec["seconds"] = time.perf_counter() - t0
             logger.info("EPOCH %d wall %.3f s (loader wait %.3f s, %d "

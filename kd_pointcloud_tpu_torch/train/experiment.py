@@ -4,13 +4,20 @@ the teacher's epoch loop.
 Port of kd_pointcloud_tpu/train/experiment.py (reference
 train_bid_pointconv.py:20-181): the glue the reference spreads across its
 entry scripts lives here once, and the cli/ entries are thin wrappers.
-The batch is the config's batch_size on one device; the JAX package's
-batch_size_per_device and its padding of a batch to a device mesh wait for
-the port's parallel/ module.
+
+Launched by torchrun (cli.train calls parallel.init_from_env), the loop is
+data-parallel over the process group, with the JAX package's batch
+semantics: batch_size_per_device: true scales the config's batch by the
+world size, a global batch that does not divide over the ranks is padded
+(parallel.data_parallel_plan; the pad rows are masked out of the loss),
+every rank loads the same global batch and runs its rows, and rank 0 alone
+writes logs and checkpoints. Without a process group it runs on one
+device, as the JAX package does on one.
 """
 
 from __future__ import annotations
 
+import logging
 import os.path as osp
 import time
 from typing import Optional
@@ -21,6 +28,8 @@ import torch
 from ..data import DATASETS, Augmentation, DataLoader, ProcessData
 from ..device import resolve_device
 from ..models import PRESETS, BidPointFlowNet
+from ..parallel import (Mesh, data_parallel_plan, make_mesh, replicate,
+                        resolve_global_batch)
 from ..utils import Config, blue, make_experiment_dir, make_logger
 from .checkpoints import full_state_tree, restore_train_state, save_checkpoint
 from .loop import (batch_to_device, eval_sceneflow, make_eval_step,
@@ -65,17 +74,38 @@ def build_model(args: Config, preset_key: str = "model_preset",
                            generator=torch.Generator().manual_seed(0))
 
 
-def build_loaders(args: Config, train_ds, val_ds):
+def build_loaders(args: Config, train_ds, val_ds,
+                  batch_size: Optional[int] = None):
     """The shuffled train loader (drop_last) and the val loader, which
     keeps every sample: its short final batch is padded and the padding
-    masked out of the metrics."""
+    masked out of the metrics; batches of batch_size (default the
+    config's)."""
     workers = args.get("workers", 2)
-    train_loader = DataLoader(train_ds, args.batch_size, shuffle=True,
-                              drop_last=True, num_workers=workers)
-    val_loader = DataLoader(val_ds, args.batch_size, shuffle=False,
-                            drop_last=False, pad_last=True,
-                            num_workers=workers)
+    bs = batch_size if batch_size is not None else args.batch_size
+    train_loader = DataLoader(train_ds, bs, shuffle=True, drop_last=True,
+                              num_workers=workers)
+    val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False,
+                            pad_last=True, num_workers=workers)
     return train_loader, val_loader
+
+
+def run_dir_and_logger(mesh: Mesh, base: str, model_name: str,
+                       logger_name: str, log_file: str, **dir_kw):
+    """(run_dir, logger): rank 0 makes the run directory and logs to its
+    logs/log_file and to stdout; every other rank logs nothing and takes
+    rank 0's run directory."""
+    if not mesh.is_main:
+        logger = make_logger(logger_name, to_stdout=False)
+        logger.addHandler(logging.NullHandler())
+        got = [None]
+        torch.distributed.broadcast_object_list(got, src=0, group=mesh.group)
+        return got[0], logger
+    run_dir = make_experiment_dir(base, model_name, **dir_kw)
+    if mesh.group is not None:
+        torch.distributed.broadcast_object_list([run_dir], src=0,
+                                                group=mesh.group)
+    return run_dir, make_logger(logger_name,
+                                osp.join(run_dir, "logs", log_file))
 
 
 def resume_epoch(ckpt_epoch: int, best_epe: float) -> int:
@@ -85,8 +115,11 @@ def resume_epoch(ckpt_epoch: int, best_epe: float) -> int:
     return ckpt_epoch + 1 if best_epe != float("inf") else ckpt_epoch
 
 
-def run_epoch(step, loader, device, max_steps: Optional[int]) -> dict:
-    """One pass of step over loader's batches (at most max_steps): the mean
+def run_epoch(step, loader, device, max_steps: Optional[int],
+              pad_to: Optional[int] = None,
+              mesh: Optional[Mesh] = None) -> dict:
+    """One pass of step over loader's batches (at most max_steps), each
+    padded to pad_to and, with mesh, cut to this rank's rows: the mean
     loss, and the seconds spent waiting on the loader and in all."""
     losses, load_s = [], 0.0
     t0 = time.perf_counter()
@@ -97,7 +130,7 @@ def run_epoch(step, loader, device, max_steps: Optional[int]) -> dict:
         load_s += time.perf_counter() - t
         if max_steps is not None and i >= max_steps:
             break
-        losses.append(step(batch_to_device(batch_np, device)))
+        losses.append(step(batch_to_device(batch_np, device, pad_to, mesh)))
     loss = float(np.mean([float(l) for l in losses]))      # syncs
     return dict(loss=loss, steps=len(losses), load_s=load_s,
                 train_s=time.perf_counter() - t0)
@@ -113,18 +146,31 @@ def train_teacher(args: Config, device="cuda",
 
     Returns (model, optimizer, best_epe, run_dir, history): history holds
     a dict an epoch (lr, mean train loss, eval EPE3D and loss, seconds, the
-    checkpoint written or None)."""
+    checkpoint written or None; None on every rank but 0).
+
+    In a process group (see the module's docstring) every rank runs the
+    loop on its rows of each global batch, and all of them return the same
+    numbers."""
     device = resolve_device(device)
-    run_dir = make_experiment_dir(args.get("experiment_dir", "./experiment"),
-                                  args.model_name)
-    logger = make_logger(args.model_name,
-                         osp.join(run_dir, "logs",
-                                  f"train_{args.model_name}_sceneflow.txt"))
+    mesh = make_mesh(devices=device)
+    run_dir, logger = run_dir_and_logger(
+        mesh, args.get("experiment_dir", "./experiment"), args.model_name,
+        args.model_name, f"train_{args.model_name}_sceneflow.txt")
     logger.info("PARAMETER ... %s", dict(args))
 
     model = build_model(args, device=device)
     train_ds, val_ds = build_datasets(args)
-    train_loader, val_loader = build_loaders(args, train_ds, val_ds)
+    # batch_size_per_device: true scales the config's batch by the world
+    # size; otherwise the global batch is padded to the mesh, pad rows
+    # masked out of the loss, so data parallelism engages either way
+    global_bs = resolve_global_batch(
+        args.batch_size, args.get("batch_size_per_device", False), mesh.size)
+    train_loader, val_loader = build_loaders(args, train_ds, val_ds,
+                                             global_bs)
+    mesh, sharding, padded_bs = data_parallel_plan(global_bs, logger, mesh)
+    step_mesh = sharding.mesh if sharding is not None else None
+    train_pad = padded_bs if (sharding is not None
+                              and padded_bs != global_bs) else None
     # the JAX package draws one batch here to shape its initialisation;
     # drawing it too keeps the shuffles and augmentations of both packages
     # the same
@@ -138,8 +184,9 @@ def train_teacher(args: Config, device="cuda",
         init_epoch = resume_epoch(ckpt_epoch, best_epe)
         logger.info("loaded %s (resume at epoch %d, best epe %.4f)",
                     args.pretrain, init_epoch, best_epe)
+    replicate(mesh, model)
 
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, mesh=step_mesh)
     eval_step = make_eval_step(model)
     history = []
     epochs = max_epochs if max_epochs is not None else args.epochs
@@ -151,13 +198,13 @@ def train_teacher(args: Config, device="cuda",
             logger.info("Learning rate: %f", lr)
 
             rec = run_epoch(train_step, train_loader, device,
-                            max_steps_per_epoch)
+                            max_steps_per_epoch, train_pad, step_mesh)
             logger.info("EPOCH %d %s mean loss: %f", epoch, blue("train"),
                         rec["loss"])
 
             t_eval = time.perf_counter()
-            eval_epe3d, eval_loss = eval_sceneflow(eval_step, val_loader,
-                                                   device)
+            eval_epe3d, eval_loss = eval_sceneflow(
+                eval_step, val_loader, device, train_pad, step_mesh)
             rec.update(epoch=epoch, lr=lr, epe=eval_epe3d,
                        eval_loss=eval_loss, checkpoint=None,
                        eval_s=time.perf_counter() - t_eval)
@@ -166,10 +213,11 @@ def train_teacher(args: Config, device="cuda",
 
             if eval_epe3d < best_epe:
                 best_epe = eval_epe3d
-                rec["checkpoint"] = save_checkpoint(
-                    osp.join(run_dir, "checkpoints"), args.model_name, epoch,
-                    best_epe, full_state_tree(model, optimizer, epoch,
-                                              best_epe))
+                if mesh.is_main:
+                    rec["checkpoint"] = save_checkpoint(
+                        osp.join(run_dir, "checkpoints"), args.model_name,
+                        epoch, best_epe, full_state_tree(model, optimizer,
+                                                         epoch, best_epe))
                 logger.info("Save model to %s", rec["checkpoint"])
             logger.info("Best epe loss is: %.5f", best_epe)
             rec["seconds"] = time.perf_counter() - t0

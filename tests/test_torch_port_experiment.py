@@ -25,7 +25,8 @@ tiny_config shapes (256 points a cloud, exact kNN on both sides).
   jax made unimportable, on the same trees.
 
 The JAX loops run single-device here (its data-parallel plan is patched
-out), as the port's do.
+out), as the port's do without a process group; the port's data-parallel
+loops are held in tests/test_torch_port_parallel.py.
 """
 
 import dataclasses
@@ -166,8 +167,8 @@ def teacher_runs(tree, patched):
     port_steps = []
     port_make_step = port_exp.make_train_step
 
-    def port_train_step(model, optimizer):
-        step = port_make_step(model, optimizer)
+    def port_train_step(model, optimizer, mesh=None):
+        step = port_make_step(model, optimizer, mesh=mesh)
 
         def run(batch):
             loss = step(batch)

@@ -399,6 +399,22 @@ def test_chip_smoke_workflow_runs_on_cpu(monkeypatch):
     assert datasets.FlyingThings3DSubset.TRAIN_COUNT == 19640   # restored
 
 
+def test_chip_smoke_mesh_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """The smoke run's mesh phase on the CPU at tiny_config and 256 points:
+    (a) a gloo world of one rank in this process against the no-mesh step,
+    (b) two spawned gloo ranks against one step over their global batch,
+    under the card's gates; the plain versions launch no kernel."""
+    mod = _load_chip_smoke()
+    # the spawned ranks import the module by name to find mesh_rank
+    monkeypatch.setitem(sys.modules, "chip_smoke", mod)
+    monkeypatch.syspath_prepend(str(ROOT))
+    out = mod.mesh_phase(str(tmp_path), tiny_config("teacher"), "cpu", 256)
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    assert out["launches"] == zero
+    assert out["rank_launches"] == [zero] * mod.MESH_RANKS
+    assert out["ms"] > 0 and out["no_mesh_ms"] > 0
+
+
 def test_chip_smoke_preprocess_phase_runs_on_cpu(monkeypatch):
     """The smoke run's raw-frames-to-eval step on the CPU at tiny_config
     and small frames: both preprocessors' entries (one worker each), then
