@@ -75,14 +75,19 @@ it goes:
      (FPS and kNN first held bit for bit against fps_plain and knn_plain
      at each site; FPS's chain, the rounds without their distance pass,
      timed beside it);
-  9. the attic kernels, on no path, against their plain versions: pruned
-     FPS at 8192 -> 2048 on the stacked clouds of the eval, train and KD
-     forwards (batches 2, 6, 16) and a clustered cloud, bit-identical to
-     fps_plain and to the FPS kernel, with the skipped sub-block updates
-     equal to the plain version's, timed beside the FPS kernel; the
-     L-layer cross pool at L = 1 on the 12 pool sites of an eval forward,
-     bit-equal to the pool kernel and within 1e-4 x max|plain| of
-     pool_plain, and at L = 2 at each width, within 1e-4 x max|plain|;
+  9. the attic kernels, on no path, against their plain versions: ptxas's
+     registers and spills of both; pruned FPS -> 2048 on the stacked
+     8192-point clouds of the eval, train and KD forwards (batches 2, 6,
+     16), a clustered cloud and two clouds of 32768 points (the most it
+     takes: a cluster of 4 blocks a cloud), bit-identical to fps_plain and
+     to the FPS kernel, with the skipped sub-block updates equal to the
+     plain version's, timed beside the FPS kernel and its chain
+     (kdpc_fps_pruned_skeleton); the L-layer cross pool at L = 1 on the 12
+     pool sites of an eval forward and the 3 C = 16 sites of a batch-8
+     student train forward, bit-equal to the pool kernel and within 1e-4 x
+     max|plain| of pool_plain, and at L = 2 at each width, within 1e-4 x
+     max|plain|; the Morton-window kNN (attic/morton.py, plain torch) at
+     8192^2, k = 32, window 1024: its recall against the kNN kernel;
  10. the KD path: one distill step of the student (lighttoken_res, seed 0)
      from the frozen teacher (seed 1), batch 8, 8192 points,
      biDirection_loss_ht through make_named_loss (gamma 0.3, beta 0.8,
@@ -280,6 +285,9 @@ FAST_KD_ARGS = dict(gamma=0.6, layers=(1, 2))
 ABLATION_PRESETS = ("no_cross", "vote")
 FEATURE_REPS = 5
 FPS_PRUNED_BATCHES = (2, 6, 16)    # stacked clouds: eval, train, KD forward
+# the Morton-window kNN's line in phase 9: k and window of the JAX module's
+# recall note (attic/morton.py), at the l0 search of 8192^2
+MORTON_K, MORTON_WINDOW = 32, 1024
 # FPS at l2-l4 when nested_fps=False: (N, npoint) of each level's call
 NESTED_FPS = ((2048, 512), (512, 256), (256, 64))
 # the workflow phase's seeded trees: FT3D-subset scenes (batch 3 x 2 train
@@ -373,10 +381,16 @@ KERNEL_META = {
                             "d_h0"),
     "fps_pruned": dict(source="kd_pointcloud_tpu_torch/csrc/fps_pruned.cu",
                        replaces="attic/fps_pruned.py:329",
-                       design="first: bounding-sphere pruning of sub-blocks"),
+                       design="second: 8 warps a cloud (a cluster of 2 or 4 "
+                              "blocks above 8192 points), points in shared "
+                              "memory, dirty sub-blocks by ballot, cached "
+                              "winners with coordinates, one warp's redux "
+                              "fold a round"),
     "cross_pool": dict(source="kd_pointcloud_tpu_torch/csrc/cross_pool.cu",
                        replaces="attic/cross_pool.py:90",
-                       design="first: L layers in shared memory"),
+                       design="second: the pool kernel's passes and 8 x 8 "
+                              "register tiles over L layers written back in "
+                              "place, W resident or streamed, one wave"),
 }
 
 
@@ -1144,6 +1158,7 @@ def main() -> int:
         return 2
     from kd_pointcloud_tpu_torch.attic import cross_pool as cross_mod
     from kd_pointcloud_tpu_torch.attic import fps_pruned as pruned_mod
+    from kd_pointcloud_tpu_torch.attic import morton as morton_mod
     from kd_pointcloud_tpu_torch.eval import (evaluate_model,
                                               make_eval_forward,
                                               pairs_loader, synthetic_pairs)
@@ -1157,7 +1172,8 @@ def main() -> int:
     from kd_pointcloud_tpu_torch.ops import pointnet2_compat as pn2
     from kd_pointcloud_tpu_torch.ops import fps as fps_mod
     from kd_pointcloud_tpu_torch.ops import kernels
-    from kd_pointcloud_tpu_torch.ops.kernel_ab import fps_skeleton
+    from kd_pointcloud_tpu_torch.ops.kernel_ab import (fps_pruned_skeleton,
+                                                       fps_skeleton)
     from kd_pointcloud_tpu_torch.ops import knn as knn_mod
     from kd_pointcloud_tpu_torch.ops import pool_fused as pool_mod
     from kd_pointcloud_tpu_torch.train import (apply_frozen, best_checkpoint,
@@ -1748,15 +1764,37 @@ def main() -> int:
     clustered = (torch.randn(1, 16, 1, 3, device="cuda", generator=gen) * 20
                  + torch.randn(1, 16, N_POINTS // 16, 3, device="cuda",
                                generator=gen)).reshape(1, N_POINTS, 3)
+    # the largest clouds the pruned kernel takes: a pair of the eval
+    # pairs' shape at 32768 points
+    widest = torch.stack([torch.from_numpy(a) for a in synthetic_pairs(
+        1, pruned_mod.MAX_N, seed=SEED + 4)[0][:2]]).cuda()
     m = PRESETS["teacher"].npoints[1]
     fps_sites = {2: calls["fps"][0][0], 6: tcalls["fps"][0][0],
                  16: torch.cat([kd_batch["pos1"], kd_batch["pos2"]]),
-                 "clustered": clustered}
+                 "clustered": clustered, f"N={pruned_mod.MAX_N}": widest}
     check(all(fps_sites[b].shape[0] == b for b in FPS_PRUNED_BATCHES),
           "the stacked clouds of the three forwards")
-    log(f"[9/27 attic kernels vs plain] pruned FPS {N_POINTS} -> {m}: "
-        "indices against fps_plain and the FPS kernel, skipped sub-block "
-        "updates against the plain version")
+    log(f"[9/27 attic kernels vs plain] pruned FPS -> {m}: indices against "
+        "fps_plain and the FPS kernel, skipped sub-block updates against the "
+        "plain version, the chain (kdpc_fps_pruned_skeleton) beside it; "
+        "ptxas:")
+    for line in ptxas_summary(info["log"]):
+        if line.startswith(("fps_pruned_kernel", "cross_pool_kernel")):
+            log(f"  {line}")
+    # the student's l0 cost volume (C = 16), recorded from a batch-8
+    # train forward; phase 14 holds the pool kernels there
+    s_model = BidPointFlowNet(
+        PRESETS["student"], device="cuda",
+        generator=torch.Generator().manual_seed(STUDENT_SEED))
+    s_fwd_calls = {n: [] for n in points}
+    rec_student = copy.deepcopy(s_model).train()
+    with swapped(recorder(s_fwd_calls)), torch.no_grad():
+        rec_student(kd_batch["pos1"], kd_batch["pos2"],
+                    kd_batch["norm1"], kd_batch["norm2"])
+    del rec_student
+    c16 = [a for a in s_fwd_calls["pool"] if a[0].shape[2] == 16]
+    check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
+          f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
     attic = {"fps_pruned": {}, "cross_pool": {}}
     with torch.inference_mode():
         for key, xyz in fps_sites.items():
@@ -1764,7 +1802,8 @@ def main() -> int:
             plain, p_dirty = pruned_mod.fps_pruned_plain(xyz, m, True)
             bad = [int((got != ref).sum()) for ref in (
                 plain, fps_mod.fps_plain(xyz, m), cuda_fns["fps"](xyz, m))]
-            rounds = xyz.shape[0] * (m - 1) * (N_POINTS // pruned_mod.SUB)
+            rounds = (xyz.shape[0] * (m - 1)
+                      * (xyz.shape[1] // pruned_mod.SUB))
             share = float(dirty.sum()) / rounds
             log(f"  fps_pruned {site('fps_pruned', (xyz, m))} ({key}): "
                 f"indices differing from fps_pruned_plain / fps_plain / "
@@ -1776,25 +1815,33 @@ def main() -> int:
                   "pruned fps skipped other updates than its plain version")
             ms = cuda_ms(lambda: cuda_fns["fps_pruned"](xyz, m), REPS, 3)
             row1 = cuda_ms(lambda: cuda_fns["fps"](xyz, m), REPS, 3)
+            lay = pruned_mod.spatial_permutation(xyz)
+            chain = cuda_ms(lambda: fps_pruned_skeleton(xyz, m, lay), REPS,
+                            3)
             attic["fps_pruned"][key] = dict(
-                ms=ms, fps_kernel_ms=row1, updates_share=share,
-                work=kernels.kernel_work("fps_pruned", xyz, m,
-                                         int(dirty.sum())))
-            log(f"    {ms:.4f} ms, the FPS kernel {row1:.4f} ms")
+                ms=ms, fps_kernel_ms=row1, chain_ms=chain,
+                updates_share=share, work=kernels.kernel_work(
+                    "fps_pruned", xyz, m, int(dirty.sum())))
+            log(f"    {ms:.4f} ms, the FPS kernel {row1:.4f} ms, the chain "
+                f"{chain:.4f} ms (blocks a cloud "
+                f"{pruned_mod.fps_pruned_plan(xyz.shape[1])[0]})")
         results["fps_pruned"]["match"] = (
-            "bit-identical to fps_plain and the FPS kernel at B = 2, 6, 16 "
-            "and a clustered cloud")
+            "bit-identical to fps_plain and the FPS kernel at B = 2, 6, 16, "
+            f"a clustered cloud and N = {pruned_mod.MAX_N} (B = 2)")
         kd_site = fps_sites[FPS_PRUNED_BATCHES[-1]]
         fp_times = time_sites("fps_pruned", [(kd_site, m)],
                               [attic["fps_pruned"][16]["work"]])
+        fp_times["chain_ms"] = attic["fps_pruned"][16]["chain_ms"]
 
         log(f"  cross_pool L=1 on the {len(calls['pool'])} pool sites of an "
-            "eval forward: against the pool kernel (bit-equal) and "
+            f"eval forward and the {len(c16)} C = 16 sites of a student "
+            "train forward: against the pool kernel (bit-equal) and "
             f"pool_plain (<= {ATTIC_TOL} x max|plain|)")
-        cp_sites = [(u, v, idx, [w], [b])
-                    for u, idx, v, w, b in calls["pool"]]
+        to_cross = lambda sites: [(u, v, idx, [w], [b])   # noqa: E731
+                                  for u, idx, v, w, b in sites]
+        cp_sites, cp16_sites = to_cross(calls["pool"]), to_cross(c16)
         worst = 0.0
-        for args, pargs in zip(cp_sites, calls["pool"]):
+        for args, pargs in zip(cp_sites + cp16_sites, calls["pool"] + c16):
             got = cuda_fns["cross_pool"](*args)
             err = float((got - plain_fns["pool"](*pargs)).abs().max())
             scale = float(plain_fns["pool"](*pargs).abs().max())
@@ -1807,10 +1854,12 @@ def main() -> int:
             check(same, "cross_pool at L=1 differs from the pool kernel")
             check(err <= ATTIC_TOL * scale, f"cross_pool: {err}")
         cp_times = time_sites("cross_pool", cp_sites)
+        cp16_times = time_sites("cross_pool", cp16_sites)
         log(f"  cross_pool L=1 per eval forward: {cp_times['ms']:.4f} ms "
             f"(the pool kernel {eval_times['pool']['ms']:.4f} ms), plain "
             f"{cp_times['plain_ms']:.4f} ms, bound "
-            f"{cp_times['bound_ms']:.5f} ms")
+            f"{cp_times['bound_ms']:.5f} ms; at the C = 16 sites "
+            f"{cp16_times['ms']:.4f} ms, bound {cp16_times['bound_ms']:.5f}")
         two = []
         for c, (u, v, idx, w, b) in sorted(
                 {a[0].shape[2]: a for a in cp_sites}.items()):
@@ -1830,8 +1879,24 @@ def main() -> int:
             two.append(args)
         cp2_times = time_sites("cross_pool", two)
         results["cross_pool"]["match"] = (
-            f"bit-equal to the pool kernel at L=1; max err / max|plain| "
-            f"{worst:.3g} at L=1 and 2")
+            f"bit-equal to the pool kernel at L=1 (the eval forward's and "
+            f"the student's C = 16 sites); max err / max|plain| {worst:.3g} "
+            "at L=1 and 2")
+
+        # the Morton-window kNN (plain torch) against the kNN kernel
+        pos1, pos2 = dev_pairs[0][0], dev_pairs[0][1]
+        _, m_idx = morton_mod.knn_block_dist(MORTON_K, pos2, pos1,
+                                             window=MORTON_WINDOW)
+        morton_ms = cuda_ms(lambda: morton_mod.knn_block_dist(
+            MORTON_K, pos2, pos1, window=MORTON_WINDOW), 3, 1)
+        _, k_idx = cuda_fns["knn"](MORTON_K, pos2, pos1)
+        recall = float((m_idx[..., :, None] == k_idx[..., None, :]).any(-1)
+                       .float().mean())
+        attic["morton"] = dict(recall=recall, ms=morton_ms)
+        log(f"  Morton-window kNN (plain torch) k={MORTON_K}, window "
+            f"{MORTON_WINDOW}, {pos1.shape[1]}^2: recall {recall:.4f} "
+            f"against the kNN kernel; {morton_ms:.3f} ms a call")
+        check(0.0 < recall <= 1.0, f"Morton kNN recall {recall}")
     torch.cuda.synchronize()
     deadline("attic kernels")
 
@@ -1979,18 +2044,7 @@ def main() -> int:
     # the student presets: the frozen teacher (seed 1) distils into the
     # halved-width student (seed 0), whose l0 cost volume pools at C = 16
     del student, fresh, fresh_opt, kd_step, kd_opt, eval_step
-    s_model = BidPointFlowNet(
-        PRESETS["student"], device="cuda",
-        generator=torch.Generator().manual_seed(STUDENT_SEED))
-    s_fwd_calls = {n: [] for n in points}
-    rec_student = copy.deepcopy(s_model).train()
-    with swapped(recorder(s_fwd_calls)), torch.no_grad():
-        rec_student(kd_batch["pos1"], kd_batch["pos2"], kd_batch["norm1"],
-                    kd_batch["norm2"])
-    del rec_student
-    c16 = [args for args in s_fwd_calls["pool"] if args[0].shape[2] == 16]
-    check(len(c16) == 3, f"C = 16 pool sites of a student forward: "
-          f"{len(c16)}, expected 3 (the l0 cross layer's three pools)")
+    # s_model, its recorded train forward and c16 come from phase 9
     log(f"[14/27 pool at C = 16 vs plain] the {len(c16)} C = 16 pool sites "
         f"of a batch-{KD_BATCH} student train forward (cross0), pool "
         f"within 1e-4 x max|plain|, pool_bwd within {POOL_BWD_TOL}; ptxas:")
@@ -2976,6 +3030,7 @@ def main() -> int:
         per=f"one call at B=16 (the KD forward's stacked clouds), "
             f"{N_POINTS} -> {m}; on no path",
         by_batch={str(k): dict(ms=v["ms"], fps_kernel_ms=v["fps_kernel_ms"],
+                               chain_ms=v["chain_ms"],
                                updates_share=v["updates_share"])
                   for k, v in attic["fps_pruned"].items()}))
     kernel_rows.append(dict(
@@ -2985,7 +3040,8 @@ def main() -> int:
         match=results["cross_pool"]["match"],
         per=f"L=1 at the {len(cp_sites)} pool sites of an eval forward; on "
             "no path",
-        two_layers=timing(cp2_times, 0)))
+        two_layers=timing(cp2_times, 0),
+        c16_sites=timing(cp16_times, 0)))
     plain_ops = [dict(
         name="knn_features", route="torch",
         source="kd_pointcloud_tpu_torch/ops/knn.py",
@@ -2999,7 +3055,13 @@ def main() -> int:
         replaces="kd_pointcloud_tpu/nn/experimental.py (XLA around the "
                  "FPS and kNN kernels)",
         per="one forward a module, batch 1, l1 = 2048 points",
-        modules=inv_rows)]
+        modules=inv_rows), dict(
+        name="morton_knn", route="torch",
+        source="kd_pointcloud_tpu_torch/attic/morton.py",
+        replaces="attic/morton.py knn_block_dist (XLA, no Pallas kernel)",
+        per=f"k={MORTON_K}, window {MORTON_WINDOW}, {N_POINTS}^2, batch 1, "
+            "recall against the kNN kernel; ms a call (CUDA events)",
+        **attic["morton"])]
     log("[26/27 kernels]")
     log(json.dumps({"kernels": kernel_rows, "plain_ops": plain_ops}))
     log(f"[27/27 done] {time.monotonic() - t0:.1f} s wall; nvidia-smi:")

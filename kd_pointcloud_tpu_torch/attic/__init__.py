@@ -2,8 +2,9 @@
 repository: kept negative results that no path of either package runs).
 
 fps_pruned: exact FPS with bounding-sphere pruning (csrc/fps_pruned.cu);
-cross_pool: the cost-volume pool with an L-layer MLP (csrc/cross_pool.cu).
-Each module holds its plain version beside its kernel wrapper.
+cross_pool: the cost-volume pool with an L-layer MLP (csrc/cross_pool.cu);
+morton: the Morton-window block kNN, plain torch (the JAX module has no
+kernel). Each kernel's module holds its plain version beside its wrapper.
 """
 
 from .cross_pool import cross_pool_fused, cross_pool_plain

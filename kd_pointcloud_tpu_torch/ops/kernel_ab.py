@@ -7,11 +7,13 @@ the eval forward (batch 1), the train step (batch 3) and the KD step (batch
 
 DIR holds the other design's sources of the kernels named (``fps.cu`` and
 ``pool_fused.cu`` by default; ``knn.cu`` and ``pool_fused_bwd.cu`` for
-``--kernels knn,pool_bwd``), e.g. the files of an earlier commit written
-out with ``git show``. Their entry points are bound as
-``OTHER_SIGNATURES`` says: ``kdpc_fps`` without the blocks-a-cloud
-argument, ``kdpc_pool`` as now, and ``kdpc_knn`` / ``kdpc_pool_bwd`` as
-they were before the kNN launch plan and the sign scratch. They are
+``--kernels knn,pool_bwd``; ``fps_pruned.cu`` and ``cross_pool.cu`` for
+the attic kernels, ``--kernels fps_pruned,cross_pool``), e.g. the files of
+an earlier commit written out with ``git show``. Their entry points are
+bound as ``OTHER_SIGNATURES`` says: ``kdpc_fps`` without the
+blocks-a-cloud argument, ``kdpc_pool`` as now, ``kdpc_knn`` /
+``kdpc_pool_bwd`` as they were before the kNN launch plan and the sign
+scratch, and ``kdpc_fps_pruned`` / ``kdpc_cross_pool`` as now. They are
 compiled by their own ``nvcc`` processes into a second library beside the
 port's.
 
@@ -32,8 +34,15 @@ too small to keep the card busy compare like with like. At the pool
 forward's sites the plain composition (pool_plain: gather, cuBLAS linear,
 amax) is timed too; at the FPS sites every cluster size G and the rounds'
 synchronisation skeleton (kdpc_fps_skeleton, no distance pass: the chain)
-at each G. Last, one call of this design at every site of a path runs
-under torch.profiler, for its device time by kernel name.
+at each G. The attic kernels, which no path runs, are timed where the
+path kernels they stand beside run: pruned FPS at each path's FPS site
+(indices and sub-block updates held equal; beside it the FPS kernel and
+the pruned rounds' skeleton, kdpc_fps_pruned_skeleton, its chain), the
+cross pool at L = 1 at the eval forward's pool sites (also held bit-equal
+to the pool kernel, which is timed beside it) and at L = 2 at one of them
+a width (a seeded second layer); the plain version at each. Last, one call
+of this design at every site of a path runs under torch.profiler, for its
+device time by kernel name.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ from pathlib import Path
 
 import torch
 
+from ..attic import cross_pool as cross_mod
+from ..attic import fps_pruned as pruned_mod
 from . import fps as fps_mod
 from . import kernels
 from . import knn as knn_mod
@@ -56,9 +67,10 @@ from . import pool_fused as pool_mod
 
 REPS = 20
 TOL = 1e-4
-KERNELS = ("fps", "knn", "pool", "pool_bwd")
+KERNELS = ("fps", "knn", "pool", "pool_bwd", "fps_pruned", "cross_pool")
 SOURCES = {"fps": "fps.cu", "knn": "knn.cu", "pool": "pool_fused.cu",
-           "pool_bwd": "pool_fused_bwd.cu"}
+           "pool_bwd": "pool_fused_bwd.cu", "fps_pruned": "fps_pruned.cu",
+           "cross_pool": "cross_pool.cu"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 OTHER_SIGNATURES = {
     # xyz, B, N, M, out_idx, stream
@@ -71,16 +83,28 @@ OTHER_SIGNATURES = {
     # share, stream
     "pool_bwd": ("kdpc_pool_bwd", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P, _P, _P, _P, _P, _P, _P)),
+    # planes, pidx, centers, radii, xyz, B, N, M, out_idx, dirty, stream
+    "fps_pruned": ("kdpc_fps_pruned", (_P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                       _P, _P)),
+    # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
+    "cross_pool": ("kdpc_cross_pool", (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _P, _P)),
 }
 # a kernel's own CUDA kernels by name (the profiler's demangled names)
 NAME_RE = {"fps": r"(?<![A-Za-z_])fps_kernel",
            "knn": r"(?<![A-Za-z_])knn_kernel",
            "pool": r"(?<![A-Za-z_])pool_kernel",
-           "pool_bwd": r"(?<![A-Za-z_])pool_bwd"}
-# launches a step of each path at a recorded site
+           "pool_bwd": r"(?<![A-Za-z_])pool_bwd",
+           "fps_pruned": r"(?<![A-Za-z_])fps_pruned_kernel",
+           "cross_pool": r"(?<![A-Za-z_])cross_pool_kernel"}
+# launches a step of each path at a recorded site (the attic kernels, on
+# no path: one a site)
 COUNTS = {"eval forward": dict(fps=1, knn=1, pool=1, pool_bwd=1),
           "train step": dict(fps=1, knn=1, pool=1, pool_bwd=1),
           "KD step": dict(fps=2, knn=2, pool=2, pool_bwd=1)}
+ATTIC_COUNT = 1
+# the rows of a kernel: the cross pool's at L = 1 and at L = 2
+ROWS = {"cross_pool": ("cross_pool", "cross_pool L=2")}
 
 
 def build_other(src_dir: Path, names) -> ctypes.CDLL:
@@ -174,6 +198,49 @@ def other_pool_bwd(lib, u, idx, v, weight, bias, ct):
     return d_u, d_v, d_w, d_b
 
 
+def other_fps_pruned(lib, xyz, npoint):
+    pruned_mod._check(xyz, npoint)
+    kernels.check_on_card("fps_pruned", xyz)
+    B, N, _ = xyz.shape
+    lay = pruned_mod.spatial_permutation(xyz)
+    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    dirty = torch.zeros(B, dtype=torch.int32, device=xyz.device)
+    _call(lib.kdpc_fps_pruned, lay.planes.data_ptr(), lay.pidx.data_ptr(),
+          lay.centers.data_ptr(), lay.radii.data_ptr(), xyz.data_ptr(), B, N,
+          npoint, out.data_ptr(), dirty.data_ptr())
+    return out, dirty.long()
+
+
+def other_cross_pool(lib, u, v, idx, weights, biases):
+    cross_mod._check(u, v, idx, weights, biases)
+    B, N2, C = u.shape
+    _, N1, K = idx.shape
+    wt = torch.stack([w.t() for w in weights]).float().contiguous()
+    bias = torch.stack(list(biases)).float().contiguous()
+    kernels.check_on_card("cross_pool", u, v, idx, wt, bias)
+    out = torch.empty(B, N1, C, dtype=torch.float32, device=u.device)
+    _call(lib.kdpc_cross_pool, u.data_ptr(), idx.data_ptr(), v.data_ptr(),
+          wt.data_ptr(), bias.data_ptr(), B, N1, N2, K, C, len(weights),
+          out.data_ptr())
+    return out
+
+
+def fps_pruned_skeleton(xyz, npoint, lay=None):
+    """The pruned FPS rounds' folds, slots and barriers without sphere tests
+    and updates: its chain. lay: the clouds' layout, made here unless
+    given (the layout's torch ops take more host time than the chain)."""
+    B, N, _ = xyz.shape
+    lay = pruned_mod.spatial_permutation(xyz) if lay is None else lay
+    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    err = kernels.lib().kdpc_fps_pruned_skeleton(
+        lay.planes.data_ptr(), lay.pidx.data_ptr(), lay.centers.data_ptr(),
+        lay.radii.data_ptr(), xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+        None, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fps_pruned skeleton: cudaError {err}")
+    return out
+
+
 def fps_skeleton(xyz, npoint, blocks):
     """The FPS rounds' synchronisation without their distance pass."""
     B, N, _ = xyz.shape
@@ -230,11 +297,15 @@ def cuda_ms(fn, reps=REPS) -> float:
 
 
 def site_name(name, args) -> str:
-    if name == "fps":
+    if name in ("fps", "fps_pruned"):
         return f"B={args[0].shape[0]} {args[0].shape[1]}->{args[1]}"
     if name == "knn":
         k, xyz, q = args
         return f"k={k} B={q.shape[0]} {q.shape[1]}x{xyz.shape[1]}"
+    if name == "cross_pool":
+        u, _, idx, ws = args[:4]
+        return (f"B={u.shape[0]} N={idx.shape[1]} K={idx.shape[2]} "
+                f"C={u.shape[2]} L={len(ws)}")
     u, idx = args[0], args[1]
     return (f"B={u.shape[0]} N={idx.shape[1]} K={idx.shape[2]} "
             f"C={u.shape[2]}")
@@ -246,7 +317,7 @@ def compare(name, args, new, other):
     with torch.inference_mode(name != "pool_bwd"):
         a, b = new(*args), other(*args)
     if name != "pool_bwd":
-        a, b = (a, b) if name == "knn" else ((a,), (b,))
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise RuntimeError(f"{name} {site_name(name, args)}: the designs "
                                "differ")
@@ -340,6 +411,57 @@ def extra_pool(args):
     return dict(plain_ms=cuda_ms(fn), plain_device_ms=device_ms(fn, None))
 
 
+def extra_fps_pruned(args):
+    """Beside pruned FPS at one site: the path's FPS kernel there (its
+    indices held equal; event and device ms) and the pruned rounds'
+    skeleton (device ms: the chain)."""
+    xyz, m = args
+    fps = lambda: fps_mod._fps_cuda(xyz, m)     # noqa: E731
+    if not torch.equal(fps(), pruned_mod._fps_pruned_cuda(xyz, m)):
+        raise RuntimeError(f"fps_pruned {site_name('fps', args)}: differs "
+                           "from the FPS kernel")
+    return dict(fps_kernel_ms=cuda_ms(fps),
+                fps_kernel_device_ms=device_ms(fps, NAME_RE["fps"]),
+                chain_device_ms=device_ms(
+                    lambda: fps_pruned_skeleton(xyz, m),
+                    NAME_RE["fps_pruned"]))
+
+
+def extra_cross_pool(args):
+    """Beside the cross pool at one site: its plain version (event and
+    device ms) and, at L = 1, the pool kernel, held bit-equal to it."""
+    u, v, idx, ws, bs = args
+    plain = lambda: cross_mod.cross_pool_plain(*args)     # noqa: E731
+    out = dict(plain_ms=cuda_ms(plain), plain_device_ms=device_ms(plain, None))
+    if len(ws) == 1:
+        pool = lambda: pool_mod._pool_cuda(u, idx, v, ws[0], bs[0])  # noqa
+        if not torch.equal(pool(), cross_mod._cross_pool_cuda(*args)):
+            raise RuntimeError(f"cross_pool {site_name('cross_pool', args)}: "
+                               "differs from the pool kernel at L = 1")
+        out.update(pool_kernel_ms=cuda_ms(pool),
+                   pool_kernel_device_ms=device_ms(pool, NAME_RE["pool"]))
+    return out
+
+
+def attic_sites(sites, path, gen):
+    """The attic kernels' sites beside a path's recorded ones: pruned FPS at
+    its FPS sites; the cross pool at L = 1 at the eval forward's pool sites
+    and at L = 2 at the last of them of each width, with a seeded second
+    layer."""
+    out = {"fps_pruned": list(sites["fps"]), "cross_pool": [],
+           "cross_pool L=2": []}
+    if path != "eval forward":
+        return out
+    out["cross_pool"] = [(u, v, idx, [w], [b])
+                         for u, idx, v, w, b in sites["pool"]]
+    for c, (u, v, idx, ws, bs) in sorted(
+            {a[0].shape[2]: a for a in out["cross_pool"]}.items()):
+        w2 = torch.randn(c, c, device="cuda", generator=gen) / c ** 0.5
+        b2 = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        out["cross_pool L=2"].append((u, v, idx, ws + [w2], bs + [b2]))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -370,11 +492,19 @@ def main(argv=None) -> int:
           + str({g: fps_mod.card_clusters(g)
                  for g in fps_mod.CLUSTER_SIZES}), flush=True)
     new = {"fps": fps_mod._fps_cuda, "knn": knn_mod._knn_cuda,
-           "pool": pool_mod._pool_cuda, "pool_bwd": pool_mod._pool_bwd_cuda}
+           "pool": pool_mod._pool_cuda, "pool_bwd": pool_mod._pool_bwd_cuda,
+           "fps_pruned": lambda xyz, m: pruned_mod._fps_pruned_cuda(
+               xyz, m, True),
+           "cross_pool": cross_mod._cross_pool_cuda}
     other = {"fps": lambda *a: other_fps(lib, *a),
              "knn": lambda *a: other_knn(lib, *a),
              "pool": lambda *a: other_pool(lib, *a),
-             "pool_bwd": lambda *a: other_pool_bwd(lib, *a)}
+             "pool_bwd": lambda *a: other_pool_bwd(lib, *a),
+             "fps_pruned": lambda *a: other_fps_pruned(lib, *a),
+             "cross_pool": lambda *a: other_cross_pool(lib, *a)}
+    extras = {"fps": lambda a: extra_fps(a, NAME_RE["fps"]),
+              "pool": extra_pool, "fps_pruned": extra_fps_pruned,
+              "cross_pool": extra_cross_pool}
     model = BidPointFlowNet(PRESETS["teacher"], device="cuda",
                             generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -386,12 +516,13 @@ def main(argv=None) -> int:
         sites["pool_bwd"] = [] if not train else [
             (*a, torch.randn(a[2].shape, device="cuda", generator=gen))
             for a in sites["pool"]]
+        sites.update(attic_sites(sites, path, gen))
         rows = {}
-        for name in names:
+        for name, row in ((n, r) for n in names for r in ROWS.get(n, (n,))):
             tot = dict(other_ms=0.0, new_ms=0.0, other_device_ms=0.0,
                        new_device_ms=0.0, launches=0, sites=[])
-            count = COUNTS[path][name]
-            for a in sites[name]:
+            count = COUNTS[path].get(name, ATTIC_COUNT)
+            for a in sites[row]:
                 err = compare(name, a, new[name], other[name])
                 ctx = (torch.no_grad() if name == "pool_bwd"
                        else torch.inference_mode())
@@ -400,30 +531,29 @@ def main(argv=None) -> int:
                         other[name], new[name], new[name], other[name])]
                     dev = [device_ms(lambda: f(*a), NAME_RE[name])
                            for f in (other[name], new[name])]
-                    extra = (extra_fps(a, NAME_RE[name]) if name == "fps"
-                             else extra_pool(a) if name == "pool" else {})
+                    extra = extras[name](a) if name in extras else {}
                 o_ms, n_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
                 tot["other_ms"] += count * o_ms
                 tot["new_ms"] += count * n_ms
                 tot["other_device_ms"] += count * dev[0]
                 tot["new_device_ms"] += count * dev[1]
                 tot["launches"] += count
-                for key in ("plain_ms", "plain_device_ms"):
-                    if key in extra:
-                        tot[key] = tot.get(key, 0.0) + count * extra[key]
+                beside = {k: v for k, v in extra.items()
+                          if k.endswith("_ms") and isinstance(v, float)}
+                for key, val in beside.items():
+                    tot[key] = tot.get(key, 0.0) + count * val
                 tot["sites"].append(dict(
                     site=site_name(name, a), other_ms=t[0::3],
                     new_ms=t[1:3], ratio=n_ms / o_ms, other_device_ms=dev[0],
                     new_device_ms=dev[1], device_ratio=dev[1] / dev[0],
                     max_abs_diff=err, **extra))
-                plain = (f"; plain {extra['plain_ms']:.4f} ms (device "
-                         f"{extra['plain_device_ms']:.4f})"
-                         if name == "pool" else "")
-                print(f"  {path} {name} {site_name(name, a)}: other "
+                print(f"  {path} {row} {site_name(name, a)}: other "
                       f"{t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / "
                       f"{t[2]:.4f} ms, ratio {n_ms / o_ms:.3f}; device "
                       f"other {dev[0]:.4f}, this {dev[1]:.4f} ms, ratio "
-                      f"{dev[1] / dev[0]:.3f}{plain}", flush=True)
+                      f"{dev[1] / dev[0]:.3f}"
+                      + "".join(f"; {k} {v:.4f}" for k, v in beside.items()),
+                      flush=True)
             if tot["launches"]:
                 tot["ratio"] = tot["new_ms"] / tot["other_ms"]
                 tot["device_ratio"] = (tot["new_device_ms"]
@@ -432,7 +562,7 @@ def main(argv=None) -> int:
                                               for x in tot["sites"])
                 tot["worst_site_device_ratio"] = max(
                     x["device_ratio"] for x in tot["sites"])
-                print(f"{path} {name}: {tot['launches']} launches, other "
+                print(f"{path} {row}: {tot['launches']} launches, other "
                       f"{tot['other_ms']:.4f} ms, this {tot['new_ms']:.4f} "
                       f"ms, ratio {tot['ratio']:.3f}; device other "
                       f"{tot['other_device_ms']:.4f}, this "
@@ -440,7 +570,7 @@ def main(argv=None) -> int:
                       f"{tot['device_ratio']:.3f}; worst site "
                       f"{tot['worst_site_ratio']:.3f} (device "
                       f"{tot['worst_site_device_ratio']:.3f})", flush=True)
-                rows[name] = tot
+                rows[row] = tot
         rows["device_ms_by_kernel"] = device_ms_by_kernel(new, sites, names)
         paths[path] = rows
     result = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -454,7 +584,8 @@ def main(argv=None) -> int:
     print(json.dumps({p: {n: {key: r[key] for key in (
         "other_ms", "new_ms", "ratio", "other_device_ms", "new_device_ms",
         "device_ratio", "worst_site_ratio", "worst_site_device_ratio")}
-                          for n, r in rows.items() if n in KERNELS}
+                          for n, r in rows.items()
+                          if n != "device_ms_by_kernel"}
                       for p, rows in paths.items()}))
     return 0
 

@@ -74,6 +74,10 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P),
     # planes, pidx, centers, radii, xyz, B, N, M, out_idx, dirty, stream
     "kdpc_fps_pruned": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # as kdpc_fps_pruned: the rounds without sphere tests and updates, for
+    # timing (dirty not written)
+    "kdpc_fps_pruned_skeleton": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                 _P),
     # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
     "kdpc_cross_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }

@@ -11,7 +11,19 @@ kernels run in interpret mode, on the CPU.
   against the Pallas kernel in interpret mode at L in {1, 2}, within 1e-5
   abs (float32 sums in another order), and at L = 1 equal to the port's
   pool_plain, which computes the same function with the same ops.
+- The redesigned kernels' walks: fps_pruned_split (the cloud's sub-blocks
+  over 1, 2 or 4 blocks, cached winners with their coordinates, folds by
+  largest bm then smallest index) bit-equal to fps_pruned_plain in indices
+  and sub-block updates; fps_pruned_plan at every N the wrapper takes;
+  spatial_permutation's sub-blocks and their slot order against the JAX
+  package's; cross_pool_tiled (the pool kernel's passes and i-tiles over L
+  layers written back in place) bit-equal to pool_tiled at L = 1 and
+  within 1e-5 of the output's largest magnitude of cross_pool_plain and
+  the Pallas kernel in interpret mode at L = 1-3, C = 16-256;
+  cross_pool_shape against the kernel's constants.
 """
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +31,7 @@ import pytest
 import torch
 
 from attic import cross_pool as jax_cross_pool
+from attic import fps_pruned as jax_fps_pruned_mod
 from attic.fps_pruned import furthest_point_sample_pruned as jax_fps_pruned
 from kd_pointcloud_tpu_torch.attic import (cross_pool_fused, cross_pool_plain,
                                            fps_pruned_plain,
@@ -27,7 +40,10 @@ from kd_pointcloud_tpu_torch.attic import (cross_pool_fused, cross_pool_plain,
 from kd_pointcloud_tpu_torch.attic import cross_pool as port_cross_pool
 from kd_pointcloud_tpu_torch.attic import fps_pruned as port_fps_pruned
 from kd_pointcloud_tpu_torch.ops.fps import fps_plain
-from kd_pointcloud_tpu_torch.ops.pool_fused import pool_plain
+from kd_pointcloud_tpu_torch.ops.pool_fused import (KERNEL_C, pool_plain,
+                                                    pool_tiled)
+
+CSRC = Path(port_fps_pruned.__file__).resolve().parent.parent / "csrc"
 
 torch.set_num_threads(1)
 
@@ -144,3 +160,119 @@ def test_cross_pool_refuses_gradients_and_bad_shapes():
         cross_pool_fused(t(u), t(v), t(idx), w, b[:1])
     with pytest.raises(ValueError, match="CUDA"):
         port_cross_pool._cross_pool_cuda(t(u), t(v), t(idx), w, b)
+
+
+# ------------------------------------------------------- the kernels' walks
+
+@pytest.mark.parametrize("kind", ["clustered", "ties"])
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_pruned_split_equals_plain(kind, blocks):
+    """The kernel's split of a cloud over blocks and its folds, with the
+    cached winners' coordinates feeding the next round: indices and
+    sub-block updates bit-equal to fps_pruned_plain (2048 points: 16
+    sub-blocks, 16 / 8 / 4 a block)."""
+    rng = np.random.RandomState(blocks)
+    B, N, npoint = 2, 2048, 256
+    if kind == "clustered":
+        xyz = _clustered(rng, B, N)
+    else:   # every point twice: ties inside and across sub-blocks, blocks
+        half = rng.uniform(-5, 5, (B, N // 2, 3)).astype(np.float32)
+        xyz = np.concatenate([half, half], 1)[:, rng.permutation(N)]
+    xyz = torch.from_numpy(np.ascontiguousarray(xyz))
+    want, want_dirty = fps_pruned_plain(xyz, npoint, return_dirty=True)
+    got, dirty = port_fps_pruned.fps_pruned_split(xyz, npoint, blocks)
+    assert torch.equal(got, want) and torch.equal(dirty, want_dirty)
+    assert int(dirty.max()) < (npoint - 1) * (N // 128)   # pruning ran
+
+
+def test_pruned_plan_covers_every_n():
+    text = (CSRC / "fps_pruned.cu").read_text()
+    assert "constexpr int kBlockSub = 64;" in text
+    assert "constexpr int kPointBytes = 20;" in text
+    assert port_fps_pruned.BLOCK_SUB == 64
+    for n in range(1024, port_fps_pruned.MAX_N + 1, 1024):
+        g, nb = port_fps_pruned.fps_pruned_plan(n)
+        assert g in (1, 2, 4) and g * nb == n // 128
+        # the fewest blocks whose shares fit a block's 227 kB
+        assert nb <= 64 and (g == 1 or n // 128 / (g // 2) > 64)
+        assert nb * 128 * port_fps_pruned.POINT_BYTES <= 227 * 1024
+    assert port_fps_pruned.fps_pruned_plan(8192) == (1, 64)
+    assert port_fps_pruned.fps_pruned_plan(32768) == (4, 64)
+
+
+@pytest.mark.parametrize("B,N", [(1, 2048), (2, 3072)])
+def test_spatial_permutation_matches_jax_slots(B, N):
+    """The port's sub-blocks, in slot order, hold the same points as the
+    JAX package's slots, with the same centres and radii (float32 sums in
+    another order: 1e-5 relative)."""
+    xyz = _clustered(np.random.RandomState(N + B), B, N)
+    g, ordc, ordr = (np.asarray(a) for a in jax_fps_pruned_mod.
+                     _spatial_permutation(jnp.asarray(xyz), N // 1024))
+    lay = spatial_permutation(torch.from_numpy(xyz))
+    K = N // 128
+    p = np.arange(N)
+    lane = p % (N // 8)
+    slot = lane // 128 * 8 + p // (N // 8)
+    for b in range(B):
+        want = [sorted(g[b, slot == i]) for i in range(K)]
+        got = lay.pidx[b].reshape(K, 128).tolist()
+        assert got == want
+    np.testing.assert_allclose(lay.centers.numpy(), ordc, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(lay.radii.numpy(), ordr, rtol=1e-5)
+
+
+def _layers_case(seed, c, n_layers, B=2, n1=37, n2=45, k=40):
+    """n1 = 37 leaves the last pass ragged at every width; K = 40 takes
+    two chunks of 32 slots."""
+    rng = np.random.RandomState(seed)
+    u = rng.standard_normal((B, n2, c)).astype(np.float32)
+    v = rng.standard_normal((B, n1, c)).astype(np.float32)
+    idx = rng.randint(0, n2, (B, n1, k)).astype(np.int32)
+    ws = [(rng.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)
+          for _ in range(n_layers)]                        # (out, in)
+    bs = [(0.1 * rng.standard_normal(c)).astype(np.float32)
+          for _ in range(n_layers)]
+    t = torch.from_numpy
+    return t(u), t(v), t(idx), [t(w) for w in ws], [t(b) for b in bs]
+
+
+@pytest.mark.parametrize("c", KERNEL_C)
+def test_cross_pool_tiled_at_one_layer_is_pool_tiled(c):
+    u, v, idx, ws, bs = _layers_case(c, c, 1)
+    assert torch.equal(port_cross_pool.cross_pool_tiled(u, v, idx, ws, bs),
+                       pool_tiled(u, idx, v, ws[0], bs[0]))
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
+@pytest.mark.parametrize("c", KERNEL_C)
+def test_cross_pool_tiled_matches_plain_and_pallas(c, n_layers):
+    u, v, idx, ws, bs = _layers_case(c + n_layers, c, n_layers, n2=37)
+    got = port_cross_pool.cross_pool_tiled(u, v, idx, ws, bs).numpy()
+    want = np.asarray(jax_cross_pool.cross_pool_fused(
+        jnp.asarray(u.numpy()), jnp.asarray(v.numpy()),
+        jnp.asarray(idx.numpy()), [w.numpy().T for w in ws],
+        [b.numpy() for b in bs], interpret=True))
+    # float32 sums in another order (the i-tiles, torch / XLA dots): 1e-5
+    # of the output's largest magnitude
+    for ref in (cross_pool_plain(u, v, idx, ws, bs).numpy(), want):
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("c", KERNEL_C)
+def test_cross_pool_shape_matches_the_kernel_and_fits(c):
+    text = (CSRC / "cross_pool.cu").read_text()
+    assert "kIT = C == 256 ? 16 : (C > 64 ? 32 : C);" in text
+    assert "__launch_bounds__(kThreads, 1)" in text
+    assert "constexpr int kMaxSmem = 227 * 1024;" in text
+    one, two = (port_cross_pool.cross_pool_shape(c, n) for n in (1, 2))
+    assert one["resident"] == two["resident"] == (c <= 64)
+    for shape in (one, two):
+        # two blocks of one and two layers fit an SM's 228 kB, 1 kB
+        # reserved a block (the launch bounds ask for one)
+        assert 2 * (shape["smem_bytes"] + 1024) <= 228 * 1024
+        assert shape["queries"] * 32 * c == 256 * 64
+    # past what a block holds, the layers stream through two tiles
+    many = port_cross_pool.cross_pool_shape(c, 200)
+    assert not many["resident"] and many["smem_bytes"] <= 227 * 1024
