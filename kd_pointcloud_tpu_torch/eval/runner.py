@@ -33,6 +33,7 @@ from ..data.loader import PAD_PATH
 from ..device import use_full_fp32
 from ..losses import multi_scale_loss_per_sample
 from ..parallel import Mesh, gather_rows, shard_batch
+from ..perf.trace import annotate
 from ..utils.logging import AverageMeter
 from .geometry import (FT3D_INTRINSICS, INTRINSIC_KEYS, get_batch_2d_flow,
                        is_kitti, read_kitti_intrinsics)
@@ -53,12 +54,12 @@ def flow0_of(out) -> torch.Tensor:
 def make_eval_forward(model):
     """fn(pos1, pos2, norm1, norm2) -> flow0 (B, N, 3): the eval forward,
     without autograd, with the model in eval mode (BatchNorm from running
-    statistics)."""
+    statistics), in the span eval.forward (perf/trace.py)."""
     use_full_fp32()
     model.eval()
 
     def fwd(pos1, pos2, norm1, norm2):
-        with torch.inference_mode():
+        with annotate("eval.forward"), torch.inference_mode():
             return flow0_of(model(pos1, pos2, norm1, norm2))
 
     return fwd

@@ -31,6 +31,12 @@ flows (fine -> coarse; at iters > 1 the l0-l2 entries are per-iteration
 lists), fps_idx1/2, pc1/2, feat1s/2s (8 entries with feat_l4 at index 4
 for encoder="pointconv"), crosses, and for encoder="pointconv" c_feat1s/2s
 (the cross layers' inputs at l0-l2, per-iteration lists at iters > 1).
+
+The forward opens the spans model.encode (the encoder and pyramid),
+model.cross (each cross layer, and the FG layer's feature half),
+model.flow_head (each flow head) and model.upsample (each level's deconv
+skip and upsample); they are on only while a profiler records
+(perf/trace.py).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..nn import (BottleNeck, CrossLayerLight, CrossLayerLightFG,
                   PointConvD, PointConvNonLinear, PointwiseBlock,
                   SceneFlowEstimatorResidual)
 from ..ops import knn_point_dist, point_warp, upsample_idw
+from ..perf.trace import annotate
 from .config import ModelConfig
 
 _ENCODERS = ("conv", "pointconv")
@@ -179,20 +186,22 @@ class BidPointFlowNet(nn.Module):
         no_cross's one-tensor layer passes the base features on."""
         layer = getattr(self, f"cross{lvl}")
         args = (e1["pc"][lvl], pc2_lvl, c_feat1, c_feat2)
-        if self.cfg.cross == "nocross":
-            return e1["feat"][lvl], e2["feat"][lvl], layer(*args)
-        if self.cfg.cross == "fg":
-            return layer(*args, e1["feat"][lvl], e2["feat"][lvl],
-                         feat_idx=feat_idx)
-        return layer(*args)
+        with annotate("model.cross"):
+            if self.cfg.cross == "nocross":
+                return e1["feat"][lvl], e2["feat"][lvl], layer(*args)
+            if self.cfg.cross == "fg":
+                return layer(*args, e1["feat"][lvl], e2["feat"][lvl],
+                             feat_idx=feat_idx)
+            return layer(*args)
 
     def _feature_knn(self, lvl, e1, e2):
         """The FG layer's feature half of level lvl, once for all its
         iterations (it reads the base features only); None otherwise."""
         if self.cfg.cross != "fg":
             return None
-        return getattr(self, f"cross{lvl}").feature_knn(e1["feat"][lvl],
-                                                        e2["feat"][lvl])
+        with annotate("model.cross"):
+            return getattr(self, f"cross{lvl}").feature_knn(e1["feat"][lvl],
+                                                            e2["feat"][lvl])
 
     def _c_feats(self, e1, e2, lvl, i1, i2):
         """The cross layer's inputs: base features beside the upsampled
@@ -208,18 +217,22 @@ class BidPointFlowNet(nn.Module):
         cat = torch.cat
 
         # both clouds encoded stacked on the batch axis (shared weights)
-        e = self._encode(cat([xyz1, xyz2]), cat([color1, color2]))
+        with annotate("model.encode"):
+            e = self._encode(cat([xyz1, xyz2]), cat([color1, color2]))
         e1 = {k: [t[:B] for t in v] for k, v in e.items()}
         e2 = {k: [t[B:] for t in v] for k, v in e.items()}
         pc1, pc2 = e1["pc"], e2["pc"]
 
         # l4 -> l3 skip, both clouds stacked
-        f_l4_3 = self.deconv4_3(upsample_idw(e["pc"][3], e["pc"][4],
-                                             e["feat"][4]))
-        c_feat1, c_feat2 = self._c_feats(e1, e2, 3, f_l4_3[:B], f_l4_3[B:])
+        with annotate("model.upsample"):
+            f_l4_3 = self.deconv4_3(upsample_idw(e["pc"][3], e["pc"][4],
+                                                 e["feat"][4]))
+            c_feat1, c_feat2 = self._c_feats(e1, e2, 3, f_l4_3[:B],
+                                             f_l4_3[B:])
         f1_new, f2_new, cross3 = self._cross(
             3, e1, e2, pc2[3], c_feat1, c_feat2, self._feature_knn(3, e1, e2))
-        feat3, flow3 = self.flow3(pc1[3], e1["feat"][3], cross3)
+        with annotate("model.flow_head"):
+            feat3, flow3 = self.flow3(pc1[3], e1["feat"][3], cross3)
 
         flows = [None, None, None, flow3]
         crosses = [None, None, None, cross3]
@@ -232,19 +245,21 @@ class BidPointFlowNet(nn.Module):
             # one 3-NN per level serves both upsamples: the deconv skip
             # (both clouds stacked) and the flow + feature upsample (the
             # cloud-1 half)
-            d2_up, idx_up = knn_point_dist(3, e["pc"][lvl + 1], e["pc"][lvl])
-            i_both = deconvs[lvl](upsample_idw(
-                e["pc"][lvl], e["pc"][lvl + 1], cat([f1_new, f2_new]),
-                knn=(d2_up, idx_up)))
-            inter1[lvl], inter2[lvl] = i_both[:B], i_both[B:]
-            c_feat1, c_feat2 = self._c_feats(e1, e2, lvl, inter1[lvl],
-                                             inter2[lvl])
+            with annotate("model.upsample"):
+                d2_up, idx_up = knn_point_dist(3, e["pc"][lvl + 1],
+                                               e["pc"][lvl])
+                i_both = deconvs[lvl](upsample_idw(
+                    e["pc"][lvl], e["pc"][lvl + 1], cat([f1_new, f2_new]),
+                    knn=(d2_up, idx_up)))
+                inter1[lvl], inter2[lvl] = i_both[:B], i_both[B:]
+                c_feat1, c_feat2 = self._c_feats(e1, e2, lvl, inter1[lvl],
+                                                 inter2[lvl])
 
-            both_up = upsample_idw(
-                pc1[lvl], pc1[lvl + 1],
-                cat([cfg.scale * up_flow_src, up_feat], -1),
-                knn=(d2_up[:B], idx_up[:B]))
-            up_flow, feat_up = both_up[..., :3], both_up[..., 3:]
+                both_up = upsample_idw(
+                    pc1[lvl], pc1[lvl + 1],
+                    cat([cfg.scale * up_flow_src, up_feat], -1),
+                    knn=(d2_up[:B], idx_up[:B]))
+                up_flow, feat_up = both_up[..., :3], both_up[..., 3:]
 
             feat_idx = self._feature_knn(lvl, e1, e2)
             it_flows, it_c1, it_c2 = [], [], []
@@ -265,9 +280,10 @@ class BidPointFlowNet(nn.Module):
                     pc2_warp = point_warp(pc1[lvl], pc2[lvl], up_flow)
                 f1_new, f2_new, cross_l = self._cross(
                     lvl, e1, e2, pc2_warp, c_feat1, c_feat2, feat_idx)
-                feat_l, flow_l = getattr(self, f"flow{lvl}")(
-                    pc1[lvl], cat([e1["feat"][lvl], feat_up], -1), cross_l,
-                    up_flow)
+                with annotate("model.flow_head"):
+                    feat_l, flow_l = getattr(self, f"flow{lvl}")(
+                        pc1[lvl], cat([e1["feat"][lvl], feat_up], -1),
+                        cross_l, up_flow)
                 it_flows.append(flow_l)
                 # the next iteration refines from this one
                 up_flow, feat_up = flow_l, feat_l

@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from ..perf.trace import annotate
 from . import kernels
 from .distance import square_distance
 from .gather import group_points
@@ -172,7 +173,9 @@ def smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
                            largest=False)
     tied = (vals[..., 1:] == vals[..., :-1]).any(-1)
     idx = idx[..., :k]
-    if bool(tied.any()):
+    with annotate("knn_features.sync"):
+        any_tied = bool(tied.any())
+    if any_tied:
         rows = tied.nonzero(as_tuple=True)
         idx[rows] = torch.sort(d[rows], dim=-1, stable=True)[1][..., :k]
     return idx.int()
@@ -184,14 +187,15 @@ def knn_features(k: int, keys: torch.Tensor, query: torch.Tensor
     around each query row (B, S, D), in feature space: feature_distance
     and smallest_k in query chunks of 2048, as the JAX package's exact
     knn_point. Plain PyTorch on every device, without autograd (indices
-    carry no gradient)."""
+    carry no gradient). The span knn_features holds the search, and
+    knn_features.sync each chunk's host sync (perf/trace.py)."""
     if (keys.dim() != 3 or query.dim() != 3 or keys.shape[0] != query.shape[0]
             or keys.shape[2] != query.shape[2] or not 0 < k <= keys.shape[1]):
         raise ValueError(f"knn_features takes (B, N, D) keys and (B, S, D) "
                          f"queries, 0 < k <= N; got keys "
                          f"{tuple(keys.shape)}, queries "
                          f"{tuple(query.shape)}, k={k}")
-    with torch.no_grad():
+    with annotate("knn_features"), torch.no_grad():
         return torch.cat([smallest_k(feature_distance(q, keys), k)
                           for q in torch.split(query, _CHUNK, dim=1)], dim=1)
 

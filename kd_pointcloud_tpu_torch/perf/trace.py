@@ -19,6 +19,36 @@ loss in the block's place: a reader of the trace leaves the settle's
 kernels out (``SETTLE_KERNEL``). ``trace`` holds the trace to
 ``ops.kernels.LAUNCHES``: it raises when the trace holds another number
 of a port kernel's records than the block launched.
+
+Spans. ``annotate(name)`` opens a named span of the program: a
+record_function range, which the trace holds as a ``user_annotation``
+event on the host's timeline, the clock its CUDA runtime calls and kernels
+share. A span is on exactly when a torch profiler records (its active
+step); otherwise ``annotate`` returns one shared no-op context manager, so
+the program runs the same ops, syncs and launches either way. The
+program's spans (``SPANS``):
+
+  kd.teacher, kd.student, kd.loss, kd.backward, kd.optimizer
+      the phases of a KD step (train/distill.py)
+  eval.forward
+      an eval request (eval/runner.py make_eval_forward)
+  model.encode, model.cross, model.flow_head, model.upsample
+      the model's stages (models/bid_pointflow.py)
+  knn_features, knn_features.sync
+      the feature-space kNN and its host sync, one a 2048-query chunk
+      (ops/knn.py)
+
+Reading a trace: ``idle_by_span(events)`` takes the events of a trace
+that ``trace`` wrote (``json.load(f)["traceEvents"]``) and returns the
+card's idle seconds by the innermost span open on the host where each
+idle gap starts (``OUTSIDE`` where none is), which names the phase or
+stage that leaves the card waiting:
+
+    with trace("runs/t"):
+        for batch in batches:
+            step(batch)
+    with open("runs/t/trace.json") as f:
+        print(idle_by_span(json.load(f)["traceEvents"]))
 """
 
 from __future__ import annotations
@@ -31,10 +61,9 @@ from collections import Counter
 from typing import Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import (ProfilerActivity, profile, record_function,
                             schedule)
-
-from ..ops import kernels
 
 TRACE_FILE = "trace.json"
 # the first kernel each launch counter's wrapper puts on the card, once a
@@ -47,6 +76,13 @@ _COUNTER = {"pool_bwd_mask": "pool_bwd"}
 WARM_UP_KERNELS = 512
 SETTLE_KERNELS = 512
 SETTLE_KERNEL = "spin_kernel"         # torch.cuda._sleep's
+SPANS = ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
+         "kd.optimizer", "eval.forward", "model.encode", "model.cross",
+         "model.flow_head", "model.upsample", "knn_features",
+         "knn_features.sync")
+OUTSIDE = "outside"
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_OFF = contextlib.nullcontext()
 
 
 def kernel_records(events) -> dict:
@@ -94,6 +130,9 @@ def trace(log_dir: str) -> Iterator[str]:
 
     On the card it then raises if the trace lost a record of a port
     kernel that the block launched (the file is written all the same)."""
+    # ops/ opens spans, so this module imports ops/ only where it is used
+    from ..ops import kernels
+
     os.makedirs(log_dir, exist_ok=True)
     on_card = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
@@ -119,10 +158,43 @@ def trace(log_dir: str) -> Iterator[str]:
 
 
 def annotate(name: str):
-    """A named region inside a trace."""
-    return record_function(name)
+    """A span of the program named name: record_function(name) while a
+    torch profiler records, else one shared no-op context manager."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
 
 
-def step_annotation(step: int):
-    """A train step's region, named as torch.profiler names its steps."""
-    return record_function(f"ProfilerStep#{step}")
+def _end(e) -> float:
+    return float(e["ts"]) + float(e["dur"])
+
+
+def idle_by_span(events) -> dict:
+    """The card's idle seconds in a trace's events, by the innermost span
+    of SPANS open on the host where each gap starts (the shortest that
+    holds its start), OUTSIDE where none is; the most first. The window
+    runs from the first span's start to the last span's or device
+    record's end; device records are kernels, copies and sets, the
+    settle's kernels left out. {} where the trace holds no span."""
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") in SPANS]
+    if not spans:
+        return {}
+    t0 = min(float(e["ts"]) for e in spans)
+    busy = sorted((float(e["ts"]), _end(e)) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS
+                  and e.get("name") != SETTLE_KERNEL and _end(e) > t0)
+    t1 = max([_end(e) for e in spans] + [b for _, b in busy])
+    gaps, at = [], t0
+    for a, b in busy + [(t1, t1)]:
+        if a > at:
+            gaps.append((at, a - at))
+        at = max(at, b)
+    out = {}
+    for t, length in gaps:
+        around = [e for e in spans if float(e["ts"]) <= t <= _end(e)]
+        name = (min(around, key=lambda e: float(e["dur"]))["name"]
+                if around else OUTSIDE)
+        out[name] = out.get(name, 0.0) + length * 1e-6
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))

@@ -18,6 +18,10 @@ rank over the gathered outputs of the global batch (parallel.GatheredView),
 so batch sums, products of batch means and the t_history normalisation
 are the global batch's; the student's (and the Bridge's) gradients are
 averaged over the ranks, as train/loop.py make_train_step does.
+
+A step opens the spans kd.teacher, kd.student, kd.loss, kd.backward and
+kd.optimizer (the gradients' mean over a mesh and the update) around its
+phases; they are on only while a profiler records (perf/trace.py).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..losses import (att_iter_loss, bridge_ht_loss,
                       cross_bidirection_loss_ht)
 from ..nn.pointconv import batch_stats_over
 from ..parallel import Mesh, global_view, sync_grads
+from ..perf.trace import annotate
 
 
 def _forward(model, batch):
@@ -73,16 +78,21 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
     loss_fn = loss_fn or default_loss
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        t_out = apply_frozen(t_model, batch)
-        s_model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with batch_stats_over(s_model, mesh):
-            s_out = _forward(s_model, batch)
-        loss = loss_fn(global_view(mesh, s_out), global_view(mesh, t_out),
-                       global_view(mesh, batch))
-        loss.backward()
-        sync_grads(mesh, s_model.parameters())
-        optimizer.step()
+        with annotate("kd.teacher"):
+            t_out = apply_frozen(t_model, batch)
+        with annotate("kd.student"):
+            s_model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with batch_stats_over(s_model, mesh):
+                s_out = _forward(s_model, batch)
+        with annotate("kd.loss"):
+            loss = loss_fn(global_view(mesh, s_out),
+                           global_view(mesh, t_out), global_view(mesh, batch))
+        with annotate("kd.backward"):
+            loss.backward()
+        with annotate("kd.optimizer"):
+            sync_grads(mesh, s_model.parameters())
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -125,27 +135,33 @@ def make_bridge_distill_step(t_model, s_model, bridge, s_optimizer,
     use_full_fp32()
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        t_out = apply_frozen(t_model, batch)
-        s_model.train()
-        s_optimizer.zero_grad(set_to_none=True)
-        if b_optimizer is not None:
-            b_optimizer.zero_grad(set_to_none=True)
-        with batch_stats_over(s_model, mesh):
-            s_out = global_view(mesh, _forward(s_model, batch))
-        with torch.set_grad_enabled(b_optimizer is not None):
-            br = global_view(mesh, dict(zip(("br1", "br2"), bridge(
-                t_out["feat1s"][layer], t_out["feat2s"][layer]))))
-        t_out, batch = global_view(mesh, t_out), global_view(mesh, batch)
-        loss = bridge_ht_loss(s_out["flows"], s_out["feat1s"],
-                              s_out["feat2s"], s_out["fps_idx1"],
-                              batch["flow"], t_out["flows"], br["br1"],
-                              br["br2"], gamma, beta, layer)
-        loss.backward()
-        sync_grads(mesh, s_model.parameters())
-        s_optimizer.step()
-        if b_optimizer is not None:
-            sync_grads(mesh, bridge.parameters())
-            b_optimizer.step()
+        with annotate("kd.teacher"):
+            t_out = apply_frozen(t_model, batch)
+        with annotate("kd.student"):
+            s_model.train()
+            s_optimizer.zero_grad(set_to_none=True)
+            if b_optimizer is not None:
+                b_optimizer.zero_grad(set_to_none=True)
+            with batch_stats_over(s_model, mesh):
+                s_out = global_view(mesh, _forward(s_model, batch))
+        # the loss's phase holds the Bridge, which makes its hint targets
+        with annotate("kd.loss"):
+            with torch.set_grad_enabled(b_optimizer is not None):
+                br = global_view(mesh, dict(zip(("br1", "br2"), bridge(
+                    t_out["feat1s"][layer], t_out["feat2s"][layer]))))
+            t_out, batch = global_view(mesh, t_out), global_view(mesh, batch)
+            loss = bridge_ht_loss(s_out["flows"], s_out["feat1s"],
+                                  s_out["feat2s"], s_out["fps_idx1"],
+                                  batch["flow"], t_out["flows"], br["br1"],
+                                  br["br2"], gamma, beta, layer)
+        with annotate("kd.backward"):
+            loss.backward()
+        with annotate("kd.optimizer"):
+            sync_grads(mesh, s_model.parameters())
+            s_optimizer.step()
+            if b_optimizer is not None:
+                sync_grads(mesh, bridge.parameters())
+                b_optimizer.step()
         return loss.detach()
 
     return step

@@ -25,8 +25,7 @@ from kd_pointcloud_tpu_torch.models import (PRESETS, BidPointFlowNet,
                                             tiny_config)
 from kd_pointcloud_tpu_torch.ops import fps, kernels, knn, pool_fused
 from kd_pointcloud_tpu_torch.perf import (annotate, flop_count, latency,
-                                          param_count, profile_model,
-                                          step_annotation, trace)
+                                          param_count, profile_model, trace)
 from kd_pointcloud_tpu_torch.perf.trace import kernel_records
 
 torch.set_num_threads(1)
@@ -140,12 +139,14 @@ def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     fwd = make_eval_forward(model)
     with trace(str(tmp_path / "t")) as log_dir:
         for step in range(2):
-            with step_annotation(step), annotate("eval forward"):
+            with annotate("eval forward"):
                 fwd(*_pair(step))
     assert log_dir == str(tmp_path / "t")
     events = json.loads((tmp_path / "t" / "trace.json").read_text())
-    names = {e.get("name") for e in events["traceEvents"]}
-    assert {"eval forward", "ProfilerStep#0", "ProfilerStep#1"} <= names
+    spans = [e["name"] for e in events["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert spans.count("eval forward") == 2
+    assert spans.count("eval.forward") == 2    # the eval step's own span
 
 
 @pytest.mark.parametrize("name, counter", [
