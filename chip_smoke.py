@@ -477,9 +477,11 @@ def profile_device(run, n: int, what: str) -> None:
 
 
 def _launches(events, within=None) -> list:
-    """Kernel launches (runtime or driver calls) of a Chrome trace, in time
-    order, each with whether its kernel has a record there; with within,
-    only those inside the span of the annotation of that name."""
+    """Kernel launches (runtime or driver calls; a CUDA graph's launch
+    counts as one, its kernels' records carrying its correlation) of a
+    Chrome trace, in time order, each with whether a kernel of it has a
+    record there; with within, only those inside the span of the
+    annotation of that name."""
     kernel = {e.get("args", {}).get("correlation") for e in events
               if e.get("cat") == "kernel"}
     spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -488,7 +490,7 @@ def _launches(events, within=None) -> list:
     return [(e, e.get("args", {}).get("correlation") in kernel)
             for e in sorted(events, key=lambda e: e.get("ts", 0))
             if e.get("cat") in ("cuda_runtime", "cuda_driver")
-            and "LaunchKernel" in str(e.get("name"))
+            and re.search("LaunchKernel|GraphLaunch", str(e.get("name")))
             and (within is None
                  or any(a <= e.get("ts", 0) <= b for a, b in spans))]
 

@@ -1,0 +1,176 @@
+"""The eval forward as CUDA graphs: a capture an input signature, a replay
+a request.
+
+At batch 1 the card waits on the host: the teacher's eval forward at 8192
+points launches about 757 kernels, and a request's wall follows its
+launches. A replay of the captured forward is one launch of the same
+kernels. ``EvalGraphs`` answers eval/runner.py make_eval_forward's
+requests.
+
+When it engages. A request is answered from a graph only where all of
+these hold, each observed at the call; else it runs eager, as the module
+call it wraps:
+  * the model declares its forward free of host syncs (``host_sync_free``:
+    BidPointFlowNet's, derived from its layer types, holds for every
+    configuration but cross="fg", whose feature kNN syncs); a model that
+    declares nothing runs eager;
+  * the model is not in training mode;
+  * the inputs are CUDA tensors;
+  * no kernel count is on (ops.kernels.is_counting(), so perf.flop_count
+    counts an eager call), no torch dispatch mode is active, and the
+    current stream is not itself capturing.
+A capture is not made while a torch profiler records (that request runs
+eager); a replay under a profiler is.
+
+A signature (the four inputs' shapes and dtypes, and the device) is served
+so. Its first request runs eager on a side stream: it builds and loads the
+kernel library, fills the kernels' caches and sets their attributes, and
+creates cuBLAS's handle and workspace for that stream, so that nothing
+lazy happens inside the capture. Its second is captured on the same
+stream, into static input buffers, and replayed. Each request from then on
+copies its inputs into those buffers, replays, and returns a clone of the
+static flow0: a result a caller keeps is never overwritten by a later
+request.
+
+Memory. A captured signature holds its static inputs and its graph's
+private memory pool, about the forward's peak memory at that shape (0.29
+GB for the teacher at batch 1 and 8192 points). At most MAX_SIGNATURES
+signatures are held, the least recently used dropped first, so memory
+grows with the distinct shapes served up to MAX_SIGNATURES such pools.
+
+Weights. The graph reads the model's parameters and buffers where they
+lay at capture, so an update in place (load_state_dict, an optimizer step,
+running statistics) shows in the next replay. Each replayed request checks
+that every parameter and buffer of the model, as listed when the forward
+was made, still lies where it lay at capture (one data_ptr a tensor: about
+40 us of host time for the teacher's 250), and captures again where one
+moved (.to(), an assignment to .data). A parameter, buffer or module
+replaced by a new object (load_state_dict(assign=True), an assignment to
+the attribute) is not seen: make a new forward after such a change.
+
+Counters: ops.kernels.EVAL_GRAPHS (perf.eval_graph_counts()) counts
+captures, requests answered by a replay (a capture's own among them) and
+requests run eager. A capture takes the launches it recorded back out of
+ops.kernels.LAUNCHES and WIDTH_LAUNCHES, and a replay adds them, so those
+still count kernels that ran.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, NamedTuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+from ..ops import kernels
+
+MAX_SIGNATURES = 4
+_UNSEEN = object()
+_PTR = torch.Tensor.data_ptr
+
+
+def host_sync_free(model) -> bool:
+    """The model's declaration that its forward never waits on the card
+    from the host; False for a model that declares nothing."""
+    return getattr(model, "host_sync_free", False) is True
+
+
+def signature(args) -> tuple:
+    """The inputs' device, shapes and dtypes."""
+    return (args[0].device,) + tuple((tuple(a.shape), a.dtype) for a in args)
+
+
+def engages(sync_free: bool, model, args) -> bool:
+    """Whether a request of model on args may be answered from a graph
+    (the module docstring's conditions)."""
+    return (sync_free and not model.training
+            and all(torch.is_tensor(a) and a.is_cuda for a in args)
+            and not kernels.is_counting()
+            and torch._C._len_torch_dispatch_stack() == 0
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _Graph(NamedTuple):
+    """A captured forward: the graph, its static inputs and flow0, the
+    launches (kernels.restore_launches' pair) a replay runs, and where the
+    weights lay at capture."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    output: torch.Tensor
+    launches: tuple
+    weights: tuple
+
+
+class EvalGraphs:
+    """forward(*args) -> flow0 of model, answered from CUDA graphs where
+    they engage (the module docstring), else eager. Call it inside
+    torch.inference_mode()."""
+
+    def __init__(self, model: torch.nn.Module, forward: Callable):
+        self.model, self.forward = model, forward
+        self.sync_free = host_sync_free(model)
+        self._state = [*model.parameters(), *model.buffers()]
+        self._graphs: OrderedDict = OrderedDict()
+        self._streams: dict = {}
+
+    def __call__(self, *args):
+        if not engages(self.sync_free, self.model, args):
+            return self._eager(args)
+        key = signature(args)
+        graph = self._graphs.get(key, _UNSEEN)
+        if graph is _UNSEEN:
+            self._graphs[key] = None
+            while len(self._graphs) > MAX_SIGNATURES:
+                self._graphs.popitem(last=False)
+            return self._warm_up(args)
+        self._graphs.move_to_end(key)
+        weights = tuple(map(_PTR, self._state))
+        if graph is None or graph.weights != weights:
+            if _autograd_profiler._is_profiler_enabled:
+                return self._eager(args)
+            self._graphs[key] = None        # the old pool goes first
+            graph = self._graphs[key] = self._capture(args, weights)
+        return self._replay(graph, args)
+
+    def _stream(self, device) -> torch.cuda.Stream:
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device=device)
+        return self._streams[device]
+
+    def _eager(self, args):
+        kernels.EVAL_GRAPHS["eager"] += 1
+        return self.forward(*args)
+
+    def _warm_up(self, args):
+        """The eager forward on the side stream the capture will use."""
+        side = self._stream(args[0].device)
+        here = torch.cuda.current_stream(args[0].device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = self._eager(args)
+        here.wait_stream(side)
+        out.record_stream(here)     # the caller reads and frees it here
+        return out
+
+    def _capture(self, args, weights) -> _Graph:
+        static = [torch.empty_like(a, memory_format=torch.contiguous_format)
+                  for a in args]
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES), dict(kernels.WIDTH_LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, stream=self._stream(args[0].device)):
+                out = self.forward(*static)
+        finally:
+            launches = kernels.restore_launches(before)
+        kernels.EVAL_GRAPHS["captures"] += 1
+        return _Graph(graph, static, out, launches, weights)
+
+    def _replay(self, graph: _Graph, args):
+        for static, a in zip(graph.inputs, args):
+            static.copy_(a)
+        graph.graph.replay()
+        kernels.add_launches(graph.launches)
+        kernels.EVAL_GRAPHS["replays"] += 1
+        return graph.output.clone()

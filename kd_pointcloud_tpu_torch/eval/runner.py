@@ -37,6 +37,7 @@ from ..perf.trace import annotate
 from ..utils.logging import AverageMeter
 from .geometry import (FT3D_INTRINSICS, INTRINSIC_KEYS, get_batch_2d_flow,
                        is_kitti, read_kitti_intrinsics)
+from .graphs import EvalGraphs
 from .metrics import (evaluate_2d, evaluate_2d_torch, evaluate_3d,
                       evaluate_3d_torch)
 
@@ -54,13 +55,17 @@ def flow0_of(out) -> torch.Tensor:
 def make_eval_forward(model):
     """fn(pos1, pos2, norm1, norm2) -> flow0 (B, N, 3): the eval forward,
     without autograd, with the model in eval mode (BatchNorm from running
-    statistics), in the span eval.forward (perf/trace.py)."""
+    statistics), in the span eval.forward (perf/trace.py). On the card, a
+    model whose forward is free of host syncs answers from a CUDA graph of
+    the forward, captured once an input signature (eval/graphs.py says
+    when, and what it holds); flow0 is then a fresh tensor all the same."""
     use_full_fp32()
     model.eval()
+    graphs = EvalGraphs(model, lambda *args: flow0_of(model(*args)))
 
     def fwd(pos1, pos2, norm1, norm2):
         with annotate("eval.forward"), torch.inference_mode():
-            return flow0_of(model(pos1, pos2, norm1, norm2))
+            return graphs(pos1, pos2, norm1, norm2)
 
     return fwd
 

@@ -142,6 +142,15 @@ class BidPointFlowNet(nn.Module):
                 generator=g, **kw))
         self.to(device)
 
+    @property
+    def host_sync_free(self) -> bool:
+        """Whether the forward never waits on the card from the host, so
+        that it can be captured as a CUDA graph (eval/graphs.py): no layer
+        declares a host sync (SYNCS_HOST). Every configuration is, but a
+        cross="fg" one, whose feature kNN syncs once a query chunk."""
+        return not any(getattr(m, "SYNCS_HOST", False)
+                       for m in self.modules())
+
     def _level_block(self, idx: int, width: int, g):
         """The same-width block after level idx's downsample (after level0
         at l0): BottleNeck for level_block="bottleneck", else a

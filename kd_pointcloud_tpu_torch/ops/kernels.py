@@ -16,6 +16,12 @@ launches its kernel, and nowhere else, so a run can show that a path really
 went through the kernels. A kernel built for several channel widths also
 counts each launch under its width in ``WIDTH_LAUNCHES`` (key
 ``"<name> C=<width>"``), so a run can show which instances it went through.
+A CUDA graph's capture launches nothing: its launches are taken back out of
+the counters (``restore_launches``) and added again at each replay
+(``add_launches``), so the counters keep counting kernels that ran.
+``EVAL_GRAPHS`` counts how the eval forward (eval/graphs.py) answered its
+requests: captures of a graph, requests answered by a replay (a capture's
+own request among them) and requests run eagerly.
 
 ``kernel_work`` gives the operations and bytes a kernel's call needs on its
 inputs (each input read once, each output written once), the numbers its
@@ -52,6 +58,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0, "fps_pruned": 0,
             "cross_pool": 0}
 WIDTH_LAUNCHES: dict = {}
+EVAL_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
@@ -89,9 +96,34 @@ _count = None          # the WorkCount of the innermost counting() block
 
 
 def reset_launches() -> None:
+    """Zero the launch counters and EVAL_GRAPHS."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     WIDTH_LAUNCHES.clear()
+    for name in EVAL_GRAPHS:
+        EVAL_GRAPHS[name] = 0
+
+
+def restore_launches(before: tuple) -> tuple:
+    """Set LAUNCHES and WIDTH_LAUNCHES back to before, a (LAUNCHES,
+    WIDTH_LAUNCHES) pair of copies; returns what they counted since, as
+    such a pair (a graph's capture: launches that did not run)."""
+    launches = {n: c - before[0][n] for n, c in LAUNCHES.items()
+                if c != before[0][n]}
+    widths = {n: c - before[1].get(n, 0) for n, c in WIDTH_LAUNCHES.items()
+              if c != before[1].get(n, 0)}
+    LAUNCHES.update(before[0])
+    WIDTH_LAUNCHES.clear()
+    WIDTH_LAUNCHES.update(before[1])
+    return launches, widths
+
+
+def add_launches(counts: tuple) -> None:
+    """Add restore_launches' pair to the counters (a graph's replay)."""
+    for name, c in counts[0].items():
+        LAUNCHES[name] += c
+    for key, c in counts[1].items():
+        WIDTH_LAUNCHES[key] = WIDTH_LAUNCHES.get(key, 0) + c
 
 
 def sources() -> list:

@@ -38,6 +38,11 @@ program's spans (``SPANS``):
       the feature-space kNN and its host sync, one a 2048-query chunk
       (ops/knn.py)
 
+An eval request answered by a CUDA graph's replay (eval/graphs.py) opens
+eval.forward only: the model's Python, and its spans, ran at capture.
+``eval_graph_counts()`` reads how often the eval forward captured,
+replayed and ran eager.
+
 Reading a trace: ``idle_by_span(events)`` takes the events of a trace
 that ``trace`` wrote (``json.load(f)["traceEvents"]``) and returns the
 card's idle seconds by the innermost span open on the host where each
@@ -155,6 +160,15 @@ def trace(log_dir: str) -> Iterator[str]:
         raise RuntimeError(f"{path} holds the port's kernels {traced}, the "
                            f"block launched {launched}: the profiler lost "
                            f"records")
+
+
+def eval_graph_counts() -> dict:
+    """How the eval forward answered its requests since the last
+    ops.kernels.reset_launches(): CUDA graphs captured, requests answered
+    by a replay, requests run eager (eval/graphs.py)."""
+    from ..ops import kernels
+
+    return dict(kernels.EVAL_GRAPHS)
 
 
 def annotate(name: str):
