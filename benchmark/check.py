@@ -1,6 +1,7 @@
-"""What every entry's comparison shares: the reference network built from
-the seeded weights, the numbers of a training step's comparison, the TF32
-control's switch, and the judgement of each number against its limit.
+"""What every entry's comparison shares: the reference network of a model
+entry (lookup.py network) built from the seeded weights, the numbers of a
+training step's comparison, the TF32 control's switch, and the judgement
+of each number against its limit.
 
 An entry (entries/<entry>.py) decides what of the timed path it compares
 and how the reference recomputes it; see each entry's docstring.
@@ -22,23 +23,26 @@ import contextlib
 import statistics
 
 import torch
+from torch import nn
 
-from .reference.model import NetConfig, PointFlowNet
+from .lookup import network
 
 ZERO_GRAD = 1e-3          # a reference gradient under this share of the
                           # median parameter's moves by round-off alone
 
 
-def reference_model(cfg: dict, weights: dict, device) -> PointFlowNet:
-    net = PointFlowNet(NetConfig.from_dict(cfg)).to(device)
+def reference_model(cfg: dict, weights: dict, device) -> nn.Module:
+    """The model entry's reference network on device, its parameters and
+    statistics set to weights."""
+    net = network(cfg).to(device)
     net.load_state_dict(weights, strict=True)
     return net
 
 
-def meta_model(cfg: dict) -> PointFlowNet:
+def meta_model(cfg: dict) -> nn.Module:
     """The reference network's names and shapes, on no device."""
     with torch.device("meta"):
-        return PointFlowNet(NetConfig.from_dict(cfg))
+        return network(cfg)
 
 
 @contextlib.contextmanager

@@ -29,7 +29,7 @@ from benchmark import check
 from benchmark.harness import free, p95
 from benchmark.inputs import batch_of, generator, scene_pairs, seeded_weights
 from benchmark.program import model
-from benchmark.reference.model import flow0
+from benchmark.reference.outputs import flow0
 
 BLOCK = 4                 # pairs a reference eval forward
 FAR = 0.05                # a point this far off, over the median flow

@@ -8,14 +8,16 @@ pairs, scene parameters, check sizes and limits), configs/<config>.json
 driver of the workload's entry: the program it builds, its window and the
 reference comparison), and metrics/<metric>.py (one reader a per-layer
 metric). An entry may look up further files by the workload's names in
-the same way (entries/kd.py: steps/<step>.py, reference/losses/<loss>.py).
-A new cell, entry, step, loss or metric is files added, no file edited.
+the same way (entries/kd.py: steps/<step>.py, reference/losses/<loss>.py),
+a model entry names its reference network (reference/nets/<net>.py), and
+each kind of kernel call that a reference forward records has its work
+formula (kernels/<kind>.py; lookup.py finds them all). A new cell, entry,
+step, loss, metric, network or kernel is files added, no file edited.
 """
 
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import statistics
 import sys
@@ -25,10 +27,9 @@ from pathlib import Path
 import torch
 
 from . import check
+from .lookup import BENCH_DIR, ROOT, by_name
 from .work import cell_work
 
-BENCH_DIR = Path(__file__).resolve().parent
-ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "kd_pointcloud_tpu")
 
 
@@ -64,25 +65,6 @@ class Cell:
         reported = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in spec["per_layer"]
                           if m["moves"] in reported and mine(m)]
-
-
-def by_name(folder: str, name: str):
-    """The module of the file <folder>/<name>.py under benchmark/, loaded
-    once a process (a name may hold dots, as a metric's does)."""
-    key = f"benchmark.{folder.replace('/', '.')}:{name}"
-    if key not in sys.modules:
-        path = BENCH_DIR / folder / f"{name}.py"
-        if not path.is_file():
-            raise KeyError(f"benchmark/{folder} has no {name}.py")
-        spec = importlib.util.spec_from_file_location(key, path)
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[key] = module
-        try:
-            spec.loader.exec_module(module)
-        except BaseException:
-            del sys.modules[key]
-            raise
-    return sys.modules[key]
 
 
 def entry_of(cell: "Cell"):

@@ -1,5 +1,5 @@
 """pool_roofline.eval (%): the least time the cost-volume pools of the
-stretch's pairs need on the H100 (work.py pool_work at each call site),
+stretch's pairs need on the H100 (kernels/pool.py at each call site),
 over the device time of the pool kernel.
 Layer: kernels (ops/pool_fused.py -> csrc/pool_fused.cu). Moves
 eval_pairs_per_s."""

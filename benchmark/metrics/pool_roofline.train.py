@@ -1,6 +1,6 @@
 """pool_roofline.train (%): the least time the cost-volume pools of the
 stretch's pairs need on the H100, forward and, at the student's sites,
-backward (work.py pool_work, pool_bwd_work: what the gradient needs,
+backward (kernels/pool.py, kernels/pool_bwd.py: what the gradient needs,
 without a recompute of the forward), over the device time of the pool
 kernels, forward and backward.
 Layer: kernels (ops/pool_fused.py -> csrc/pool_fused.cu,

@@ -18,9 +18,11 @@ from kd_pointcloud_tpu_torch.train.state import make_optimizer
 
 def model(cfg: dict, weights: dict, device) -> torch.nn.Module:
     """The program's network for a configuration file's model entry, its
-    parameters and statistics set to weights."""
+    parameters and statistics set to weights. Every entry is a ModelConfig
+    wiring of the one BidPointFlowNet; the entry's "reference" names the
+    benchmark's reference network and is no field of it."""
     fields = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in cfg.items()}
+              for k, v in cfg.items() if k != "reference"}
     net = BidPointFlowNet(ModelConfig(**fields), device=device)
     net.load_state_dict(weights, strict=True)
     return net

@@ -3,7 +3,7 @@ imitating the teacher's finest flow and the ground truth through the
 student's FPS chain, plus both clouds' feature hints at one layer (the last
 of hint_layers). Workload keys: gamma, beta, hint_layers."""
 
-from benchmark.reference.model import flow0
+from benchmark.reference.outputs import flow0
 from benchmark.reference.train import multi_scale_loss
 
 

@@ -1,5 +1,6 @@
-"""The reference scene-flow network: Bi-PointFlowNet and its
-feature-grouping family, in plain PyTorch.
+"""The reference network "pointflownet" (the default of a model entry
+without a "reference" key): Bi-PointFlowNet and its feature-grouping
+family, in plain PyTorch.
 
 Coarse-to-fine and bidirectional: both clouds are encoded stacked on the
 batch axis (shared weights) through an l0 encoder and four FPS PointConv
@@ -14,7 +15,16 @@ level) to its 3-D ones. KD-PointCloud's models_bid_pointconv.py
 (encoder "pointconv", cross "fg").
 
 forward returns flows (fine -> coarse; per-iteration lists at l0-l2 when
-iters > 1), fps_idx1 / fps_idx2 (l1..l3), feat1s / feat2s.
+iters > 1), fps_idx1 / fps_idx2 (l1..l3), feat1s / feat2s
+(reference/outputs.py).
+
+It builds the program's ModelConfig wirings with cross light / fg, encoder
+conv / pointconv, conv level blocks, one flow_nei for every level, exact
+FPS over the whole cloud and nested levels, the warp at every level and
+scale 1: teacher, lighttoken_res, weight48, fg and bifeat. Set-up refuses
+any other model entry (NetConfig.from_dict, naming the field): another
+value of a field that changes the wiring (BUILDS), or a field it does not
+know.
 """
 
 from __future__ import annotations
@@ -25,8 +35,24 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .nn import (CrossLayer, FlowHead, PointConv, PointConvD, PointwiseBlock)
-from .ops import knn, point_warp, upsample_idw
+from benchmark.reference.nn import (CrossLayer, FlowHead, PointConv,
+                                    PointConvD, PointwiseBlock)
+from benchmark.reference.ops import knn, point_warp, upsample_idw
+
+# what this network builds of each field that selects a wiring: the values
+# it takes (cross, encoder) or the one value it builds (the rest); a
+# model entry's other value of such a field is refused
+BUILDS = dict(cross=("light", "fg"), encoder=("conv", "pointconv"),
+              flow_nei_per_level=(None,), level_block=("conv",),
+              nonlinear_downsample=(False,), coarse_warp=((),),
+              swap_interlevel=(False,), scale=(1,), nested_fps=(True,),
+              fps_blocks=(1,))
+# fields that choose no wiring here: the model's name, the entry's network,
+# the program's search and sampling back ends (its kNN and FPS are exact),
+# and bottleneck_mids, read only with level_block "bottleneck"
+IGNORED = ("name", "reference", "knn_method", "knn_recall", "knn_precision",
+           "fps_backend", "fg_feat_knn_method", "fg_euclid_knn_method",
+           "bottleneck_mids")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,19 +73,29 @@ class NetConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "NetConfig":
+        """The sizes of a model entry; raises ValueError naming each field
+        whose value this network does not build, or that it does not
+        know."""
         names = {f.name for f in dataclasses.fields(cls)}
-        kw = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in d.items() if k in names}
-        return cls(**kw)
+        kw = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+        bad = [f"{k}={v!r} (builds {' / '.join(map(repr, BUILDS[k]))})"
+               for k, v in kw.items() if k in BUILDS and v not in BUILDS[k]]
+        bad += [f"{k} (unknown field)" for k in kw
+                if k not in names and k not in BUILDS and k not in IGNORED]
+        if bad:
+            raise ValueError("reference network pointflownet does not build "
+                             + "; ".join(bad))
+        return cls(**{k: v for k, v in kw.items() if k in names})
+
+
+def Net(cfg: dict) -> "PointFlowNet":
+    """The network of a model entry (a configuration file's sizes)."""
+    return PointFlowNet(NetConfig.from_dict(cfg))
 
 
 class PointFlowNet(nn.Module):
     def __init__(self, cfg: NetConfig):
         super().__init__()
-        if cfg.cross not in ("light", "fg") or cfg.encoder not in (
-                "conv", "pointconv"):
-            raise NotImplementedError(f"reference covers cross light / fg "
-                                      f"and encoder conv / pointconv: {cfg}")
         self.cfg = cfg
         C, L, D = cfg.level_channels, cfg.lift_channels, cfg.deconv
         if cfg.encoder == "conv":
@@ -169,8 +205,3 @@ class PointFlowNet(nn.Module):
             feat1s=[x[:B] for x in lifts + l4 + tail],
             feat2s=[x[B:] for x in lifts + l4 + tail])
 
-
-def flow0(out) -> torch.Tensor:
-    """The finest flow: the last iteration's where l0 holds a list."""
-    f = out["flows"][0]
-    return f[-1] if isinstance(f, (list, tuple)) else f

@@ -10,7 +10,9 @@ cross term as one float32 matrix product, in query chunks of 2048.
 
 ``sites()`` records the shapes of every kNN, FPS and pool call made inside
 it, so that the benchmark's operation counts (work.py) follow the same
-wiring as the reference forward.
+wiring as the reference forward. A network's op of another kind records
+its own calls with ``record(kind, site)``; work.py counts each kind by its
+formula, kernels/<kind>.py work(*site).
 """
 
 from __future__ import annotations
@@ -28,21 +30,23 @@ _sites = None
 
 @contextlib.contextmanager
 def sites():
-    """Record the calls of the block: yields a dict of lists, "knn" of
-    (B, S, N, k), "fps" of (B, N, m), "pool" of (B, N1, N2, K, C, grad),
+    """Record the calls of the block: yields a dict, kind -> the list of
+    its calls' sites in call order, of every kind recorded: here "knn" of
+    (B, S, N, k), "fps" of (B, N, m), "pool" of (B, N1, N2, K, C) and, at a
+    pool whose weights take a gradient, "pool_bwd" of the same, and
     "feature_knn" of (B, S, N, D, k)."""
     global _sites
-    outer, _sites = _sites, {"knn": [], "fps": [], "pool": [],
-                             "feature_knn": []}
+    outer, _sites = _sites, {}
     try:
         yield _sites
     finally:
         _sites = outer
 
 
-def _record(kind, entry):
+def record(kind: str, site: tuple) -> None:
+    """Record a call of kind at site (its shapes) inside sites()."""
     if _sites is not None:
-        _sites[kind].append(entry)
+        _sites.setdefault(kind, []).append(site)
 
 
 class _Leaky(torch.autograd.Function):
@@ -84,7 +88,7 @@ def square_distance(src, dst):
 def knn(k, xyz, query):
     """(d2, idx int32), each (B, S, k): the k nearest keys of xyz (B, N, 3)
     to each query (B, S, 3), ascending, ties toward the lower index."""
-    _record("knn", (query.shape[0], query.shape[1], xyz.shape[1], k))
+    record("knn", (query.shape[0], query.shape[1], xyz.shape[1], k))
     ds, idxs = [], []
     for q in torch.split(query, CHUNK, dim=1):
         d, i = torch.sort(square_distance(q, xyz), dim=-1, stable=True)
@@ -96,8 +100,8 @@ def knn(k, xyz, query):
 def feature_knn(k, keys, query):
     """Indices (B, S, k) int32 of the k nearest rows of keys (B, N, D) in
     feature space, ties toward the lower index; no gradient."""
-    _record("feature_knn", (query.shape[0], query.shape[1], keys.shape[1],
-                            keys.shape[2], k))
+    record("feature_knn", (query.shape[0], query.shape[1], keys.shape[1],
+                           keys.shape[2], k))
     out = []
     with torch.no_grad():
         for q in torch.split(query, CHUNK, dim=1):
@@ -112,7 +116,7 @@ def fps(xyz, npoint):
     """Furthest-point sampling (B, N, 3) -> (B, npoint) int32: seed index
     0, each round the first maximum of the running minimum distance."""
     B, N, _ = xyz.shape
-    _record("fps", (B, N, npoint))
+    record("fps", (B, N, npoint))
     idxs = torch.zeros(B, npoint, dtype=torch.int32, device=xyz.device)
     if xyz.is_meta:             # shapes only: a count's run (work.py)
         return idxs
@@ -174,7 +178,9 @@ def pool(u, idx, v, weight, bias):
     """max_k leaky(leaky(u[idx] + v) @ weight^T + bias): u (B, N2, C), idx
     (B, N1, K), v (B, N1, C) -> (B, N1, C)."""
     B, N2, C = u.shape
-    _record("pool", (B, idx.shape[1], N2, idx.shape[2], C,
-                     torch.is_grad_enabled() and weight.requires_grad))
+    site = (B, idx.shape[1], N2, idx.shape[2], C)
+    record("pool", site)
+    if torch.is_grad_enabled() and weight.requires_grad:
+        record("pool_bwd", site)
     h = leaky(group_points(u, idx) + v[:, :, None, :])
     return leaky(F.linear(h, weight, bias)).amax(dim=2)

@@ -16,8 +16,9 @@ RUN_MODULES = ("benchmark.harness", "benchmark.program", "benchmark.check",
                "benchmark.tracing", "benchmark.work", "benchmark.inputs",
                "benchmark.readers", "benchmark.control")
 # files found by name: every one a run or control.py may load
-RUN_FOLDERS = ("entries", "steps", "metrics", "reference/losses")
-REFERENCE = ("benchmark.reference.model", "benchmark.reference.train",
+RUN_FOLDERS = ("entries", "steps", "metrics", "kernels", "reference/losses",
+               "reference/nets")
+REFERENCE = ("benchmark.reference.outputs", "benchmark.reference.train",
              "benchmark.reference.ops")
 
 
@@ -43,7 +44,8 @@ def test_run_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = _top_level_after(REFERENCE, ("reference/losses",))
+    names = _top_level_after(REFERENCE, ("reference/losses",
+                                         "reference/nets"))
     assert not names & (set(FORBIDDEN) | {"kd_pointcloud_tpu_torch"})
 
 

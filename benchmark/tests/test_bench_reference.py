@@ -8,7 +8,7 @@ import pytest
 from benchmark import check, program
 from benchmark.harness import by_name
 from benchmark.inputs import batch_of, scene_pairs, seeded_weights
-from benchmark.reference.model import flow0
+from benchmark.reference.outputs import flow0
 from benchmark.reference.train import Adam, kd_step
 from benchmark.tests.tiny import tiny_cell
 

@@ -4,21 +4,25 @@ Every count here is a function of a configuration's sizes and the batch,
 so it reads the same whatever the measured program runs:
 
 * kernel formulas (operations, bytes) of one call at its shapes, each
-  input read once and each output written once: the 3-D kNN, FPS, the
-  cost-volume pool and its backward. The pool backward counts what the
-  gradient needs (the max mask's entries, one a query and output channel),
-  not a recompute of the forward;
+  input read once and each output written once: kernels/<kind>.py
+  work(*site), one file a kind of call that a reference forward records
+  (reference/ops.py record): the 3-D kNN, FPS, the cost-volume pool and
+  its backward, and whatever a network adds. A kind recorded without a
+  formula raises; it is never counted as zero. The feature kNN alone is
+  recorded for model_flops and is no kernel of its own (NOT_KERNELS);
 * the model's operations a pair: the matrix products of the reference
   forward (torch.utils.flop_counter on the meta device, 2 a multiply-add;
-  the feature kNN's cross term among them), plus the 3-D kNN and FPS
-  formulas at the forward's call sites, which FlopCounterMode cannot see.
-  Elementwise work is not counted. A forward with a backward (a student's
-  in training) counts its differentiable products three times (forward,
-  and the gradients of inputs and weights) and its searches once: the 3-D
-  kNN, FPS and the feature kNN's product run without autograd.
+  the feature kNN's cross term among them), plus the formulas of the
+  kinds whose operations it cannot see (a formula's IN_DENSE_COUNT is
+  False: the 3-D kNN and FPS). Elementwise work is not counted. A forward
+  with a backward (a student's in training) counts its differentiable
+  products three times (forward, and the gradients of inputs and weights)
+  and its searches once: the 3-D kNN, FPS and the feature kNN's product
+  run without autograd.
 
 The call sites come from the reference forward itself (reference/ops.py
-sites()), run on meta tensors at the workload's batch and points.
+sites()), run on meta tensors at the workload's batch and points; the
+network is the model entry's (lookup.py network).
 """
 
 from __future__ import annotations
@@ -26,42 +30,27 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference.model import NetConfig, PointFlowNet
+from .lookup import by_name, network
 from .reference.ops import sites
 
 # NVIDIA H100 SXM data sheet, dense: float32 without tensor cores (the
 # port runs with TF32 off) and HBM3 bandwidth
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# recorded kinds that are no kernel of their own: the feature kNN, plain
+# torch in the program, whose products are among the dense count
+NOT_KERNELS = ("feature_knn",)
 
 
-def knn_work(B, S, N, k):
-    """Per (query, key) pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add,
-    1 compare; reads queries and keys, writes k indices and distances."""
-    return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
-
-
-def fps_work(B, N, m):
-    """Per point and round: 3 sub, 3 mul, 2 add, 1 min, 1 compare."""
-    return B * (m - 1) * N * 10, B * N * 12 + B * m * 4
-
-
-def pool_work(B, N1, N2, K, C):
-    """Per (query, neighbour): C add + C leaky, C x C multiply-add, C bias,
-    C leaky, C max; reads u, v, idx, weight, bias, writes the output."""
-    return (B * N1 * K * (2 * C * C + 5 * C),
-            (B * N2 * C + 2 * B * N1 * C + C * C + C + B * N1 * K) * 4)
-
-
-def pool_bwd_work(B, N1, N2, K, C):
-    """What the gradient needs: per (query, neighbour) d_g = d_h0 leaky',
-    d_v and d_u (3 C); per mask entry, one a (query, output channel),
-    d_h0 += d_p w and d_w += d_p h0 (2 C each) and d_bias (1). Reads u,
-    idx, v, weight, bias and the cotangent, writes d_u, d_v, d_weight,
-    d_bias."""
-    return (B * N1 * K * 3 * C + B * N1 * C * (4 * C + 1),
-            (2 * B * N2 * C + B * N1 * K + 3 * B * N1 * C + 2 * C * C
-             + 2 * C) * 4)
+def formula(kind: str):
+    """kernels/<kind>.py: work(*site) -> (operations, bytes) of one call,
+    and IN_DENSE_COUNT, whether FlopCounterMode counts its operations."""
+    try:
+        return by_name("kernels", kind)
+    except KeyError:
+        raise KeyError(f"the reference forward records {kind!r} calls and "
+                       f"benchmark/kernels has no {kind}.py: a kernel's work "
+                       f"is never counted as zero") from None
 
 
 def bound_s(ops, nbytes) -> float:
@@ -74,9 +63,8 @@ def forward_sites(cfg: dict, batch: int, points: int, grad: bool):
     """(dense flops, sites) of one reference forward of batch pairs of
     points points, on meta tensors; grad runs it as a student in training
     (the pools then have a backward)."""
-    net_cfg = NetConfig.from_dict(cfg)
     with torch.device("meta"):
-        model = PointFlowNet(net_cfg)
+        model = network(cfg)
         x = [torch.empty(batch, points, 3) for _ in range(4)]
     model.train(grad)
     with torch.set_grad_enabled(grad), sites() as calls, \
@@ -87,37 +75,35 @@ def forward_sites(cfg: dict, batch: int, points: int, grad: bool):
 
 def kernel_totals(calls) -> dict:
     """(ops, bytes, bound seconds) by kernel over recorded call sites:
-    knn, fps, pool and pool_bwd (the pools with a backward)."""
-    out = {name: [0, 0, 0.0] for name in ("knn", "fps", "pool", "pool_bwd")}
-
-    def add(name, work):
-        out[name][0] += work[0]
-        out[name][1] += work[1]
-        out[name][2] += bound_s(*work)
-
-    for site in calls["knn"]:
-        add("knn", knn_work(*site))
-    for site in calls["fps"]:
-        add("fps", fps_work(*site))
-    for *shape, grad in calls["pool"]:
-        add("pool", pool_work(*shape))
-        if grad:
-            add("pool_bwd", pool_bwd_work(*shape))
+    every kind recorded but NOT_KERNELS, by its formula."""
+    out = {}
+    for kind, kind_sites in calls.items():
+        if kind in NOT_KERNELS:
+            continue
+        work = formula(kind).work
+        total = out[kind] = [0, 0, 0.0]
+        for site in kind_sites:
+            ops, nbytes = work(*site)
+            total[0] += ops
+            total[1] += nbytes
+            total[2] += bound_s(ops, nbytes)
     return {k: tuple(v) for k, v in out.items()}
 
 
 def feature_knn_flops(calls) -> int:
     """The feature kNN's cross-term products at the recorded sites (among
     the dense count; they run without autograd)."""
-    return sum(2 * B * S * N * D for B, S, N, D, _ in calls["feature_knn"])
+    return sum(2 * B * S * N * D
+               for B, S, N, D, _ in calls.get("feature_knn", ()))
 
 
 def model_flops(dense: int, calls, grad: bool = False) -> int:
-    """A forward's counted operations: the dense products plus the 3-D kNN
-    and FPS formulas (the pool's products are among the dense ones); with
-    grad, its backward too: the differentiable products twice more."""
-    totals = kernel_totals(calls)
-    searches = totals["knn"][0] + totals["fps"][0]
+    """A forward's counted operations: the dense products plus the formulas
+    of the kernels outside them (the 3-D kNN and FPS; the pool's products
+    are among the dense ones); with grad, its backward too: the
+    differentiable products twice more."""
+    searches = sum(ops for kind, (ops, _, _) in kernel_totals(calls).items()
+                   if not formula(kind).IN_DENSE_COUNT)
     if not grad:
         return dense + searches
     nograd = feature_knn_flops(calls)
@@ -126,20 +112,20 @@ def model_flops(dense: int, calls, grad: bool = False) -> int:
 
 def cell_work(runs: list, workload: dict) -> dict:
     """The frozen counts of a cell, a pair: flops (the model's operations),
-    and for each kernel its (ops, bytes, bound seconds). runs: (model
-    sizes, with a backward) of each forward a pair runs (the entry's
-    runs(cell))."""
+    and for each kernel that a run records its (ops, bytes, bound
+    seconds). runs: (model sizes, with a backward) of each forward a pair
+    runs (the entry's runs(cell))."""
     B, N = workload["batch"], workload["points"]
     flops = 0
-    kern = {name: [0, 0, 0.0] for name in ("knn", "fps", "pool", "pool_bwd")}
+    kern = {}
     for cfg, grad in runs:
         dense, calls = forward_sites(cfg, B, N, grad)
-        totals = kernel_totals(calls)
         flops += model_flops(dense, calls, grad)
-        for name, (o, b, s) in totals.items():
-            kern[name][0] += o
-            kern[name][1] += b
-            kern[name][2] += s
+        for name, (o, b, s) in kernel_totals(calls).items():
+            total = kern.setdefault(name, [0, 0, 0.0])
+            total[0] += o
+            total[1] += b
+            total[2] += s
     return dict(flops=flops / B,
                 kernels={k: (o / B, b / B, s / B)
                          for k, (o, b, s) in kern.items()})
