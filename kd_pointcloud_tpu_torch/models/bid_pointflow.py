@@ -1,4 +1,5 @@
-"""BidPointFlowNet, the whole model family of the JAX package.
+"""BidPointFlowNet, the whole model family of the JAX package, and
+PointPWC-Net (preset pointpwc, cross="pwc"), which the port alone builds.
 
 Port of kd_pointcloud_tpu/models/bid_pointflow.py for every preset: the
 conv encoder with light cross layers (the teacher and the presets sharing
@@ -14,17 +15,22 @@ lift then a same-resolution PointConv), then an FPS PointConvD pyramid
 l1..l4 over both clouds stacked on the batch axis (shared weights); the
 decoder upsamples l4 -> l3, then per level l3..l0 warps pc2, builds the
 cost volume and runs the residual flow head, the cross-refined features
-feeding the next finer level. FPS runs once per pair (levels 2-4 slice
-level 1's ordering, nested_fps); one 3-NN search per decoder level serves
-both upsamples. level_block="bottleneck" swaps the same-width level blocks
-for BottleNeck; nonlinear_downsample swaps l3 and l4's PointConvD for
-PointConvNonLinear; a level in coarse_warp warps pc2 (in its first
-iteration) with an inverse flow built one level coarser and upsampled
-along the decoder's 3-NN. With iters > 1, levels l2..l0 refine: each
-iteration warps with the last flow and feeds the cross layer the base
-features beside the last cross output (c_feat*). cross="fg" adds the
-base features' feature-space neighbours (computed once a level);
-swap_interlevel feeds each cloud the other's upsampled features.
+feeding the next finer level. cross="pwc" is PointPWC-Net (Wu et al., ECCV
+2020) on the same encoder, decoder and warp: each level's cost volume is
+PointConvFlow (nn/experimental.py, the patch-to-patch cost volume), the
+base features go on to the next level, and the heads are
+SceneFlowEstimatorPointConv, which predict the flow itself (clamped at
++-200) from [feats, cost, upsampled flow] (no flow input at l3). FPS runs
+once per pair (levels 2-4 slice level 1's ordering, nested_fps); one 3-NN
+search per decoder level serves both upsamples. level_block="bottleneck"
+swaps the same-width level blocks for BottleNeck; nonlinear_downsample
+swaps l3 and l4's PointConvD for PointConvNonLinear; a level in
+coarse_warp warps pc2 (in its first iteration) with an inverse flow built
+one level coarser and upsampled along the decoder's 3-NN. With iters > 1,
+levels l2..l0 refine: each iteration warps with the last flow and feeds
+the cross layer the base features beside the last cross output (c_feat*).
+cross="fg" adds the base features' feature-space neighbours (computed once
+a level); swap_interlevel feeds each cloud the other's upsampled features.
 
 Tensors are channels-last (B, N, C). The output is the JAX package's dict:
 flows (fine -> coarse; at iters > 1 the l0-l2 entries are per-iteration
@@ -33,7 +39,8 @@ for encoder="pointconv"), crosses, and for encoder="pointconv" c_feat1s/2s
 (the cross layers' inputs at l0-l2, per-iteration lists at iters > 1).
 
 The forward opens the spans model.encode (the encoder and pyramid),
-model.cross (each cross layer, and the FG layer's feature half),
+model.cross (each cross layer, and the FG layer's feature half; under
+it, cross="pwc"'s model.cost_volume),
 model.flow_head (each flow head) and model.upsample (each level's deconv
 skip and upsample); they are on only while a profiler records
 (perf/trace.py).
@@ -50,13 +57,14 @@ from ..device import resolve_device
 from ..nn import (BottleNeck, CrossLayerLight, CrossLayerLightFG,
                   CrossLayerLightVote, NoCrossLayerLight, PointConv,
                   PointConvD, PointConvNonLinear, PointwiseBlock,
-                  SceneFlowEstimatorResidual)
+                  SceneFlowEstimatorPointConv, SceneFlowEstimatorResidual)
+from ..nn.experimental import PointConvFlow
 from ..ops import knn_point_dist, point_warp, upsample_idw
 from ..perf.trace import annotate
 from .config import ModelConfig
 
 _ENCODERS = ("conv", "pointconv")
-_CROSSES = ("light", "fg", "nocross", "vote")
+_CROSSES = ("light", "fg", "nocross", "vote", "pwc")
 _LEVEL_BLOCKS = ("conv", "bottleneck")
 _COARSE_WARP_LEVELS = (0, 1, 2)
 
@@ -73,12 +81,23 @@ def check_config(cfg: ModelConfig) -> None:
             wrong[field] = getattr(cfg, field)
     if not set(cfg.coarse_warp) <= set(_COARSE_WARP_LEVELS):
         wrong["coarse_warp"] = cfg.coarse_warp
+    if cfg.cross == "pwc":
+        # the pwc wiring passes the base features on, so it has no
+        # cross-refined features to iterate on or swap, and no c_feats
+        for field, built in (("iters", cfg.iters == 1),
+                             ("coarse_warp", not cfg.coarse_warp),
+                             ("swap_interlevel", not cfg.swap_interlevel),
+                             ("encoder", cfg.encoder == "conv")):
+            if not built:
+                wrong[field] = getattr(cfg, field)
     if wrong:
         raise NotImplementedError(
             f"config {cfg.name!r}: the port covers encoder in {_ENCODERS}, "
             f"cross in {_CROSSES}, level_block in {_LEVEL_BLOCKS}, "
             f"fps_blocks >= 1, iters >= 1 and coarse_warp within "
-            f"{_COARSE_WARP_LEVELS}; unsupported here: {wrong}")
+            f"{_COARSE_WARP_LEVELS}, and for cross 'pwc' iters 1, no "
+            f"coarse_warp, no swap_interlevel and encoder 'conv'; "
+            f"unsupported here: {wrong}")
 
 
 class BidPointFlowNet(nn.Module):
@@ -127,17 +146,26 @@ class BidPointFlowNet(nn.Module):
             nei = (cfg.flow_nei_per_level[lvl]
                    if cfg.flow_nei_per_level is not None else cfg.flow_nei)
             c = C[lvl]
-            cross_cls, cost = {"light": (CrossLayerLight, c),
-                               "fg": (CrossLayerLightFG, c),
-                               "vote": (CrossLayerLightVote, c + 3),
-                               "nocross": (NoCrossLayerLight, c)}[cfg.cross]
-            mlps = ((c, c),) if cfg.cross == "nocross" else ((c, c), (c, c))
-            setattr(self, f"cross{lvl}", cross_cls(
-                nei, c + D[3 - lvl], *mlps, generator=g))
+            head, kw = SceneFlowEstimatorResidual, {}
+            if cfg.cross == "pwc":
+                cross, cost = PointConvFlow(nei, c + D[3 - lvl], (c, c),
+                                            generator=g), c
+                head = SceneFlowEstimatorPointConv
+                kw["flow_channel"] = 0 if lvl == 3 else 3
+            else:
+                cross_cls, cost = {"light": (CrossLayerLight, c),
+                                   "fg": (CrossLayerLightFG, c),
+                                   "vote": (CrossLayerLightVote, c + 3),
+                                   "nocross": (NoCrossLayerLight, c)
+                                   }[cfg.cross]
+                mlps = (((c, c),) if cfg.cross == "nocross"
+                        else ((c, c), (c, c)))
+                cross = cross_cls(nei, c + D[3 - lvl], *mlps, generator=g)
+            setattr(self, f"cross{lvl}", cross)
             feat_in = c if lvl == 3 else c + head_mlp[-1]
-            kw = (dict(channels=cfg.flow0_channels, mlp=cfg.flow0_mlp)
-                  if lvl == 0 else dict(mlp=head_mlp))
-            setattr(self, f"flow{lvl}", SceneFlowEstimatorResidual(
+            kw.update(dict(channels=cfg.flow0_channels, mlp=cfg.flow0_mlp)
+                      if lvl == 0 else dict(mlp=head_mlp))
+            setattr(self, f"flow{lvl}", head(
                 feat_in, cost, weightnet=cfg.flow_weightnet[lvl],
                 generator=g, **kw))
         self.to(device)
@@ -192,11 +220,12 @@ class BidPointFlowNet(nn.Module):
 
     def _cross(self, lvl, e1, e2, pc2_lvl, c_feat1, c_feat2, feat_idx):
         """Level lvl's cross layer -> (f1_new, f2_new, cost volume);
-        no_cross's one-tensor layer passes the base features on."""
+        no_cross's and pwc's one-tensor layers pass the base features
+        on."""
         layer = getattr(self, f"cross{lvl}")
         args = (e1["pc"][lvl], pc2_lvl, c_feat1, c_feat2)
         with annotate("model.cross"):
-            if self.cfg.cross == "nocross":
+            if self.cfg.cross in ("nocross", "pwc"):
                 return e1["feat"][lvl], e2["feat"][lvl], layer(*args)
             if self.cfg.cross == "fg":
                 return layer(*args, e1["feat"][lvl], e2["feat"][lvl],

@@ -2,12 +2,14 @@
 kd_pointcloud_tpu/models/config.py (ModelConfig, PRESETS, tiny_config).
 
 The fields and presets are the JAX package's, value for value, so a preset
-names the same network in both packages. Field comments there give each
-field's source in the reference. The port builds every preset and every
-fps_blocks >= 1 (models/bid_pointflow.py check_config names the values it
-refuses). knn_method, knn_recall, knn_precision and fps_backend select
-between the TPU's search and sampling back ends; the port's kNN and FPS are
-exact and ignore them.
+names the same network in both packages; field comments there give each
+field's source in the reference. The preset pointpwc (cross="pwc",
+PointPWC-Net, Wu et al., ECCV 2020: models.py
+PointConvSceneFlowPWC8192selfglobalPointConv) is the port's alone. The port
+builds every preset and every fps_blocks >= 1 (models/bid_pointflow.py
+check_config names the values it refuses). knn_method, knn_recall,
+knn_precision and fps_backend select between the TPU's search and sampling
+back ends; the port's kNN and FPS are exact and ignore them.
 """
 
 from __future__ import annotations
@@ -95,6 +97,10 @@ PRESETS = {
         name="vote", cross="vote",
         weightnet=(8, 8, 8, 8, 8), flow_weightnet=(8, 8, 8, 8),
     ),
+    # PointPWC-Net at its published widths: the teacher's pyramid,
+    # deconvs, flow-head stack and loss, with PointConvFlow cost volumes
+    # (32-NN, MLP (c, c)) and heads that predict the flow
+    "pointpwc": ModelConfig(name="pointpwc", cross="pwc"),
     "student": ModelConfig(
         name="student", level_block="bottleneck",
         level_channels=(16, 32, 64, 128, 128),

@@ -3,8 +3,9 @@
 Port of kd_pointcloud_tpu/nn/experimental.py, class by class in that file's
 order: the PointConv variants and down-samplers, the cross layers, the
 flow-head variants, PointWarpingSimple and the omission ledger of the
-reference's vote file. None is on a preset's path; they are the capability
-surface for researchers coming from the reference.
+reference's vote file. They are the capability surface for researchers
+coming from the reference; one is on a preset's path: PointConvFlow,
+pointpwc's cost volume (models/bid_pointflow.py cross="pwc").
 
 FPS and the 3-D kNN run the hand-written kernels on the card (ops/fps.py,
 ops/knn.py; up to k = 64, which CrossLocalTransLayer's 2 nsample reaches);
@@ -28,7 +29,8 @@ import torch
 from torch import nn
 
 from ..ops import (furthest_point_sample, gather_points, group_points,
-                   knn_point, upsample_idw)
+                   kernels, knn_point, upsample_idw)
+from ..perf.trace import annotate
 from .blocks import MLP, Dense, leaky
 from .pointconv import (FixedModeBatchNorm, PointConv, group_knn,
                         weighted_contract)
@@ -223,29 +225,38 @@ class PointConvFlow(nn.Module):
     """PointPWC patch-to-patch cost volume: an MLP over [g1, g2, dxyz]
     weighted by WeightNet(dxyz) and summed over the cloud-2 neighbours,
     then a WeightNet-weighted sum over the cloud-1 self-neighbourhood.
-    in_channel: each cloud's feature width."""
+    in_channel: each cloud's feature width.
+
+    A call is the span model.cost_volume (perf/trace.py), its two kNN
+    searches inside it, and reports its work to ops.kernels.counting() as
+    "cost_volume" (kernels.kernel_work): plain PyTorch, whose products
+    FlopCounterMode sees, so the count keeps it out of its totals."""
 
     def __init__(self, nsample: int, in_channel: int, mlp: Sequence[int],
                  generator: torch.Generator | None = None):
         super().__init__()
         g = generator
         self.nsample = nsample
+        self.widths = tuple(mlp)
         self.layers = _indexed(self, "dense",
                                _dense_chain(2 * in_channel + 3, mlp, g))
         self.weightnet1 = WeightNet(mlp[-1], generator=g)
         self.weightnet2 = WeightNet(mlp[-1], generator=g)
 
     def forward(self, xyz1, xyz2, points1, points2):
-        _, _, direction, g12 = _cross_group(self.nsample, xyz1, xyz2,
-                                            points1, points2)
-        h = torch.cat([g12, direction], dim=-1)
-        for layer in self.layers:
-            h = leaky(layer(h))
-        p2p = (self.weightnet1(direction) * h).sum(2)
-        knn_self = knn_point(self.nsample, xyz1, xyz1)
-        dir_self = group_points(xyz1, knn_self) - xyz1[:, :, None, :]
-        return (self.weightnet2(dir_self)
-                * group_points(p2p, knn_self)).sum(2)
+        kernels.report("cost_volume", self.nsample, self.widths, xyz1, xyz2,
+                       points1)
+        with annotate("model.cost_volume"):
+            _, _, direction, g12 = _cross_group(self.nsample, xyz1, xyz2,
+                                                points1, points2)
+            h = torch.cat([g12, direction], dim=-1)
+            for layer in self.layers:
+                h = leaky(layer(h))
+            p2p = (self.weightnet1(direction) * h).sum(2)
+            knn_self = knn_point(self.nsample, xyz1, xyz1)
+            dir_self = group_points(xyz1, knn_self) - xyz1[:, :, None, :]
+            return (self.weightnet2(dir_self)
+                    * group_points(p2p, knn_self)).sum(2)
 
 
 class CrossLayerConcat(nn.Module):

@@ -25,13 +25,15 @@ own request among them) and requests run eagerly.
 
 ``kernel_work`` gives the operations and bytes a kernel's call needs on its
 inputs (each input read once, each output written once), the numbers its
-roofline bound is made of. Inside ``counting()`` every kernel wrapper
-reports its launch's work with ``report``, and every plain version (marked
-with ``plain``) reports the same numbers for its call while the aten ops it
-is made of are hidden from dispatch modes such as FlopCounterMode: a count
-of a model's operations is then the same on the CPU as on the card, where a
-``ctypes`` launch is invisible to dispatch. The pool backward's plain
-version is autograd of ``pool_plain``, which reports nothing.
+roofline bound is made of; also for the plain PyTorch cost volume
+(nn/experimental.py PointConvFlow, "cost_volume"), which reports itself.
+Inside ``counting()`` every kernel wrapper reports its launch's work with
+``report``, and every plain version (marked with ``plain``) reports the same
+numbers for its call while the aten ops it is made of are hidden from
+dispatch modes such as FlopCounterMode: a count of a model's operations is
+then the same on the CPU as on the card, where a ``ctypes`` launch is
+invisible to dispatch. The pool backward's plain version is autograd of
+``pool_plain``, which reports nothing.
 """
 
 from __future__ import annotations
@@ -297,6 +299,26 @@ def kernel_work(name: str, *args) -> tuple:
         return (B * N1 * K * (3 * C + L * (2 * C * C + 2 * C)),
                 (B * N2 * C + 2 * B * N1 * C + L * (C * C + C) + B * N1 * K)
                 * 4)
+    if name == "cost_volume":
+        # nn/experimental.py PointConvFlow, plain PyTorch: its two kNN
+        # searches (cloud 2, then cloud 1's own); per (query, neighbour)
+        # both directions (3 sub each), the MLP over [g1, g2, dxyz] (each
+        # layer's multiply-add, bias, leaky), two WeightNets 3 -> 8 -> 8 ->
+        # C (multiply-add, bias, ReLU) and two weighted sums (2 C each).
+        # Reads both clouds, both feature maps and the weights, writes the
+        # (B, N1, C) cost.
+        k, widths, xyz1, xyz2, points1 = args
+        B, N1, D = points1.shape
+        N2 = xyz2.shape[1]
+        C = widths[-1]
+        dims = [2 * D + 3, *widths]
+        mlp = sum(2 * a * b + 2 * b for a, b in zip(dims, dims[1:]))
+        wn = sum(2 * a * b + 2 * b for a, b in zip((3, 8, 8), (8, 8, C)))
+        params = (sum(a * b + b for a, b in zip(dims, dims[1:]))
+                  + 2 * (3 * 8 + 8 + 8 * 8 + 8 + 8 * C + C))
+        return (9 * B * N1 * (N2 + N1) + B * N1 * k * (6 + mlp + 2 * wn
+                                                       + 4 * C),
+                (B * (N1 + N2) * (3 + D) + params + B * N1 * C) * 4)
     if name not in ("pool", "pool_bwd"):
         raise ValueError(f"no work count for kernel {name!r}")
     u, idx, v, w, b = args[:5]
@@ -320,9 +342,16 @@ def kernel_work(name: str, *args) -> tuple:
              + 2 * C) * 4)
 
 
+# reported calls of plain PyTorch whose operations dispatch modes see
+# (FlopCounterMode counts their products): counted by name, left out of
+# the totals, which are the kernels' work that dispatch cannot see
+VISIBLE = ("cost_volume",)
+
+
 class WorkCount:
     """Calls, operations and bytes by kernel name, from kernel_work, of the
-    kernel launches and plain-version calls inside one counting() block."""
+    kernel launches and plain-version calls inside one counting() block
+    (and of the VISIBLE calls, outside the totals)."""
 
     def __init__(self):
         self.calls: dict = {}
@@ -336,11 +365,11 @@ class WorkCount:
 
     @property
     def total_ops(self) -> int:
-        return sum(self.ops.values())
+        return sum(v for n, v in self.ops.items() if n not in VISIBLE)
 
     @property
     def total_bytes(self) -> int:
-        return sum(self.bytes.values())
+        return sum(v for n, v in self.bytes.items() if n not in VISIBLE)
 
 
 @contextlib.contextmanager

@@ -16,6 +16,9 @@ to equal it. flop_count adds two parts:
     instead; their aten ops are left out of the dense part and their
     kernel_work counted in the kernels part, so a configuration counts the
     same on both devices.
+by_kernel also lists the plain PyTorch cost volume's calls ("cost_volume",
+ops/kernels.py VISIBLE): its products are in the dense part, so its
+operations are not added to the kernels part.
 """
 
 from __future__ import annotations

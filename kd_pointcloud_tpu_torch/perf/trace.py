@@ -30,10 +30,16 @@ program's spans (``SPANS``):
 
   kd.teacher, kd.student, kd.loss, kd.backward, kd.optimizer
       the phases of a KD step (train/distill.py)
+  train.forward, train.loss, train.backward, train.optimizer
+      the phases of a supervised train step (train/loop.py
+      make_train_step)
   eval.forward
       an eval request (eval/runner.py make_eval_forward)
   model.encode, model.cross, model.flow_head, model.upsample
       the model's stages (models/bid_pointflow.py)
+  model.cost_volume
+      a PointConvFlow cost volume and its two kNN searches
+      (nn/experimental.py; inside model.cross on cross="pwc"'s path)
   knn_features, knn_features.sync
       the feature-space kNN and its host sync, one a 2048-query chunk
       (ops/knn.py)
@@ -82,9 +88,10 @@ WARM_UP_KERNELS = 512
 SETTLE_KERNELS = 512
 SETTLE_KERNEL = "spin_kernel"         # torch.cuda._sleep's
 SPANS = ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
-         "kd.optimizer", "eval.forward", "model.encode", "model.cross",
-         "model.flow_head", "model.upsample", "knn_features",
-         "knn_features.sync")
+         "kd.optimizer", "train.forward", "train.loss", "train.backward",
+         "train.optimizer", "eval.forward", "model.encode", "model.cross",
+         "model.cost_volume", "model.flow_head", "model.upsample",
+         "knn_features", "knn_features.sync")
 OUTSIDE = "outside"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _OFF = contextlib.nullcontext()

@@ -14,6 +14,11 @@ the loss of the global batch, evaluated on every rank over the gathered
 outputs, and its gradient, averaged over the ranks, so every rank takes the
 same optimizer update. Off a mesh, or on a mesh of one rank, the step is
 the single-device one.
+
+A train step opens the spans train.forward (train mode, zero_grad, the
+forward), train.loss, train.backward and train.optimizer (the gradients'
+mean over a mesh and the update); they are on only while a profiler
+records (perf/trace.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..eval.runner import flow0_of
 from ..losses import multi_scale_loss, multi_scale_loss_per_sample
 from ..nn.pointconv import batch_stats_over
 from ..parallel import Mesh, gather_rows, global_view, shard_batch, sync_grads
+from ..perf.trace import annotate
 
 
 def supervised_loss(out, batch) -> torch.Tensor:
@@ -63,14 +69,18 @@ def make_train_step(model, optimizer, loss_fn: Optional[Callable] = None,
     use_full_fp32()
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with batch_stats_over(model, mesh):
-            out = _forward(model, batch)
-        loss = loss_fn(global_view(mesh, out), global_view(mesh, batch))
-        loss.backward()
-        sync_grads(mesh, model.parameters())
-        optimizer.step()
+        with annotate("train.forward"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with batch_stats_over(model, mesh):
+                out = _forward(model, batch)
+        with annotate("train.loss"):
+            loss = loss_fn(global_view(mesh, out), global_view(mesh, batch))
+        with annotate("train.backward"):
+            loss.backward()
+        with annotate("train.optimizer"):
+            sync_grads(mesh, model.parameters())
+            optimizer.step()
         return loss.detach()
 
     return step

@@ -4,11 +4,12 @@ program computes; the benchmark's span readers (benchmark/spans.py) and
 perf.trace's idle_by_span on hand-made traces.
 
 The bit-identity tests run a tiny teacher KD step, a tiny fast KD step
-(bifeat -> fg) and a tiny fg eval forward three times from the same seeded
-weights, once with the spans off and once inside perf.trace.recording
-(spans on), and compare losses, flows, parameters, BatchNorm statistics
-and Adam's moments bit for bit, and the aten ops each run dispatched (the
-profiler's own ops left out) one by one.
+(bifeat -> fg), a tiny fg eval forward and a tiny pointpwc supervised
+train step (make_train_step) three times from the same seeded weights,
+once with the spans off and once inside perf.trace.recording (spans on),
+and compare losses, flows, parameters, BatchNorm statistics and Adam's
+moments bit for bit, and the aten ops each run dispatched (the profiler's
+own ops left out) one by one.
 """
 
 import json
@@ -31,6 +32,7 @@ from kd_pointcloud_tpu_torch.perf.trace import OUTSIDE, SPANS
 from kd_pointcloud_tpu_torch.train import (make_distill_step,
                                            make_fast_distill_step,
                                            make_named_loss, make_optimizer)
+from kd_pointcloud_tpu_torch.train.loop import make_train_step
 
 torch.set_num_threads(1)
 
@@ -70,17 +72,22 @@ class _OpLog(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _steps(step, model, opt):
+    """Three steps: (losses, the model's parameters and buffers, Adam's
+    moments)."""
+    losses = [step(_batch(i)) for i in range(STEPS)]
+    state = [t.detach().clone() for t in model.state_dict().values()]
+    moments = [opt.state[p][key].clone() for p in model.parameters()
+               for key in ("exp_avg", "exp_avg_sq")]
+    return losses, state + moments
+
+
 def _kd(teacher, student, make_step):
     """Three KD steps from seeded weights: (losses, the student's
     parameters and buffers, Adam's moments)."""
     t_model, s_model = _model(teacher, 1), _model(student, 0)
     opt = make_optimizer(s_model)
-    step = make_step(t_model, s_model, opt)
-    losses = [step(_batch(i)) for i in range(STEPS)]
-    state = [t.detach().clone() for t in s_model.state_dict().values()]
-    moments = [opt.state[p][key].clone() for p in s_model.parameters()
-               for key in ("exp_avg", "exp_avg_sq")]
-    return losses, state + moments
+    return _steps(make_step(t_model, s_model, opt), s_model, opt)
 
 
 def _teacher_kd():
@@ -101,7 +108,16 @@ def _fg_eval():
     return flows, []
 
 
-RUNS = {"teacher_kd": _teacher_kd, "fast_kd": _fast_kd, "fg_eval": _fg_eval}
+def _pwc_train():
+    """Three supervised train steps of a tiny pointpwc (make_train_step):
+    the train.* phases and the model.cost_volume spans."""
+    model = _model("pointpwc", 0)
+    opt = make_optimizer(model)
+    return _steps(make_train_step(model, opt), model, opt)
+
+
+RUNS = {"teacher_kd": _teacher_kd, "fast_kd": _fast_kd, "fg_eval": _fg_eval,
+        "pwc_train": _pwc_train}
 
 
 def test_annotate_without_a_profiler_is_the_shared_no_op():
@@ -168,7 +184,8 @@ def test_spans_change_nothing_the_program_computes(run):
 
 def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
     """One knn_features.sync span a smallest_k call; every span of a KD
-    step and of the model; eval.forward in an eval forward."""
+    step and of the model; eval.forward in an eval forward; the train.*
+    phases and model.cost_volume in a pointpwc train step."""
     calls = []
     plain = knn.smallest_k
 
@@ -180,15 +197,20 @@ def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
     t_model, s_model = _model("bifeat", 1), _model("fg", 0)
     step = make_fast_distill_step(t_model, s_model, make_optimizer(s_model))
     fwd = make_eval_forward(_model("fg", 2))
+    pwc = _model("pointpwc", 3)
+    train = make_train_step(pwc, make_optimizer(pwc))
     with trace(str(tmp_path)):
         step(_batch(0))
         fwd(*(_batch(1)[k] for k in ("pos1", "pos2", "norm1", "norm2")))
+        train(_batch(2))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     assert set(SPANS) <= set(names)
     for phase in ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
-                  "kd.optimizer", "eval.forward"):
+                  "kd.optimizer", "eval.forward", "train.forward",
+                  "train.loss", "train.backward", "train.optimizer"):
         assert names.count(phase) == 1, phase
+    assert names.count("model.cost_volume") == 4     # one a level
     # four levels of feature kNN a forward, three forwards
     assert names.count("knn_features") == 12
     assert names.count("knn_features.sync") == len(calls) == 12
@@ -234,6 +256,39 @@ def _stretch(spans=True):
     return Stretch(ev, 2, {}, rate=1.0)
 
 
+def test_pwc_train_spans_nest_as_named(tmp_path):
+    """In a pointpwc train step the four phases follow one another, and
+    each model.cost_volume lies inside a model.cross inside
+    train.forward."""
+    model = _model("pointpwc", 0)
+    step = make_train_step(model, make_optimizer(model))
+    with trace(str(tmp_path)):
+        step(_batch(0))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in SPANS]
+
+    def one(name):
+        found = [e for e in spans if e["name"] == name]
+        assert len(found) == 1, name
+        return found[0]
+
+    def inside(e, outer):
+        return (outer["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+
+    phases = [one(f"train.{p}") for p in ("forward", "loss", "backward",
+                                           "optimizer")]
+    for a, b in zip(phases, phases[1:]):
+        assert a["ts"] + a["dur"] <= b["ts"]
+    crosses = [e for e in spans if e["name"] == "model.cross"]
+    volumes = [e for e in spans if e["name"] == "model.cost_volume"]
+    assert len(volumes) == len(crosses) == 4
+    for v in volumes:
+        assert inside(v, phases[0])
+        assert sum(inside(v, c) for c in crosses) == 1
+
+
 @pytest.mark.parametrize("name,value", [
     ("feature_knn_device_ms.train", 0.3),
     ("feature_knn_device_ms.eval", 0.3),
@@ -246,6 +301,36 @@ def test_span_readers(name, value):
 @pytest.mark.parametrize("name", READERS)
 def test_span_readers_without_spans_read_nothing(name):
     assert read_metric(name, _stretch(spans=False)) is None
+
+
+def _cost_volume_stretch(spans=True, bound_s=1.5e-4):
+    """_stretch with its knn_features spans named model.cost_volume, and
+    a cost volume bound of bound_s a pair (None: a cell without one)."""
+    s = _stretch(spans)
+    for e in s.events:
+        if e.get("name") == "knn_features":
+            e["name"] = "model.cost_volume"
+    kern = {} if bound_s is None else dict(cost_volume=(0, 0, bound_s))
+    s.work = dict(flops=0, kernels=kern)
+    return s
+
+
+def test_cost_volume_readers():
+    """Device ms a pair inside model.cost_volume (0.3, as the knn_features
+    reader reads the same spans), and the bound's share of it: 0.15 ms a
+    pair over 0.3 ms."""
+    s = _cost_volume_stretch()
+    assert read_metric("cost_volume_device_ms.train", s) == pytest.approx(0.3)
+    assert read_metric("cost_volume_roofline.train", s) == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("spans,bound_s", [(False, 1.5e-4), (True, None)])
+def test_cost_volume_readers_without_spans_or_bound_read_nothing(spans,
+                                                                   bound_s):
+    s = _cost_volume_stretch(spans, bound_s)
+    assert read_metric("cost_volume_roofline.train", s) is None
+    if not spans:
+        assert read_metric("cost_volume_device_ms.train", s) is None
 
 
 def test_idle_by_span_names_each_gap_by_its_innermost_span():
