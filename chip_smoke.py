@@ -127,20 +127,21 @@ it goes:
      serving_v3 timed as in phase 5;
  18. the FG family's eval forwards, bifeat (two refinement iterations at
      l0-l2) and fg, batch 1, through evaluate_model: launches a forward
-     from the wiring (forward_launches: fps 1, knn 29 / 20, pool 21 / 12),
-     every flow level and iteration against the plain versions as in
-     phase 4, the feature-space kNN's indices (plain PyTorch on both
-     paths) identical between the two runs at each of its 4 sites, FPS and
-     kNN bit-identical to their plain versions at each call site, each
-     kernel and the feature kNN timed at their sites (CUDA events), and
-     the forwards timed as in phase 5;
+     from the wiring (forward_launches: fps 1, knn 29 / 20, pool 21 / 12,
+     knn_features 4), every flow level and iteration against the plain
+     versions as in phase 4, the feature-space kNN's indices identical
+     between the two runs at each of its 4 sites, FPS, kNN and the feature
+     kNN bit-identical to their plain versions at each call site (the
+     feature kNN's distances too), each kernel timed at its sites (CUDA
+     events), and the forwards timed as in phase 5;
  19. the fast KD path: one step of make_fast_distill_step, frozen bifeat
      (seed 1) -> fg (seed 0), batch 8, att_iter_loss (gamma 0.6, layers
      [1, 2]), Adam lr 1e-3, weight decay 1e-4, through the kernels and, on
      a copy of the student, the plain versions, held as in phase 10
-     (launches fps 2, knn 49, pool 33, pool_bwd 12);
+     (launches fps 2, knn 49, pool 33, pool_bwd 12, knn_features 8);
  20. fast KD timing as in phase 11, with the feature kNN's ms a step (its
-     8 sites, CUDA events) beside the kernels;
+     8 sites, CUDA events, each bit-identical to the plain version) beside
+     the kernels;
  21. the no_cross and vote eval forwards at batch 1 against the plain
      versions (launches from the wiring: pool 4 and 8; vote's last round
      is plain PyTorch);
@@ -221,8 +222,8 @@ it goes:
      the student KD step's and the fast KD step's beside them, the pool's
      C = 16 sites, each workflow run's launches, and the tooling phase's
      blocked FPS and self-supervised kNN sites; the attic kernels at their
-     phase-9 shapes; the feature kNN, plain PyTorch, per fast KD step and
-     FG eval pair; FPS and kNN at the inventory's sites, the k = 64 site,
+     phase-9 shapes; the feature kNN per fast KD step and FG eval pair;
+     FPS and kNN at the inventory's sites, the k = 64 site,
      and the inventory modules' forwards);
  27. the nvidia-smi line again, then {"ok": true, "device": {...}} last.
 
@@ -342,10 +343,10 @@ GRAD_TOL = 1e-3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 PER_FORWARD = {"fps": 1, "knn": 19, "pool": 12, "pool_bwd": 0,
-               "fps_pruned": 0, "cross_pool": 0}
+               "fps_pruned": 0, "cross_pool": 0, "knn_features": 0}
 PER_TRAIN_STEP = dict(PER_FORWARD, pool_bwd=12)
 PER_KD_STEP = {"fps": 2, "knn": 38, "pool": 24, "pool_bwd": 12,
-               "fps_pruned": 0, "cross_pool": 0}
+               "fps_pruned": 0, "cross_pool": 0, "knn_features": 0}
 # a student forward in train mode, the self-supervised loss on its four
 # levels and the backward
 PER_SELFSUP_STEP = dict(PER_TRAIN_STEP, knn=PER_FORWARD["knn"] + SELFSUP_KNN)
@@ -355,8 +356,8 @@ STUDENT_C16 = {"pool C=16": 3, "pool_bwd C=16": 3}
 PATH_KERNELS = ("fps", "knn", "pool", "pool_bwd")
 # a kernel's name, not the tail of a longer one (cross_pool_kernel is not
 # pool_kernel); mangled names put the name's length (digits) before it
-KERNEL_RE = (r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_mask|pool_bwd"
-             r"|pool|cross_pool)_kernel")
+KERNEL_RE = (r"(?<![A-Za-z_])(fps_pruned|fps|knn_features|knn|pool_bwd_mask"
+             r"|pool_bwd|pool|cross_pool)_kernel")
 
 KERNEL_META = {
     "fps": dict(source="kd_pointcloud_tpu_torch/csrc/fps.cu",
@@ -391,6 +392,14 @@ KERNEL_META = {
                        design="second: the pool kernel's passes and 8 x 8 "
                               "register tiles over L layers written back in "
                               "place, W resident or streamed, one wave"),
+    # replaces XLA code: the JAX package has no Pallas kernel for it
+    "knn_features": dict(source="kd_pointcloud_tpu_torch/csrc/"
+                                "knn_features.cu",
+                         replaces="kd_pointcloud_tpu/ops/knn.py:142",
+                         design="first: 64 or 128 queries a block, 128-key "
+                                "tiles, SIMT GEMM register tiles, candidate "
+                                "queues merged into sorted lists in shared "
+                                "memory"),
 }
 
 
@@ -568,13 +577,13 @@ def forward_launches(cfg) -> dict:
     half; no_cross's one direction) and the flow head's self-kNN, and per
     l2-l0 call one warp search (a coarse warp searches one level up
     instead). Pool: 3 a cross-layer call, 2 for vote (its last round is
-    plain), 1 for no_cross."""
+    plain), 1 for no_cross. The feature kNN once a level (cross="fg")."""
     calls = 1 + 3 * cfg.iters
     encoder = 4 + (cfg.encoder == "pointconv")
     pools = {"light": 3, "fg": 3, "vote": 2, "nocross": 1}[cfg.cross]
     return {"fps": 1, "knn": encoder + 4 + 2 * calls + 3 * cfg.iters,
             "pool": pools * calls, "pool_bwd": 0, "fps_pruned": 0,
-            "cross_pool": 0}
+            "cross_pool": 0, "knn_features": 4 if cfg.cross == "fg" else 0}
 
 
 def ragged_case(u, idx, v, weight, bias, ct):
@@ -1235,17 +1244,21 @@ def main() -> int:
     # the plain version (the pool's point carries its backward kernel too)
     points = {"fps": (fps_mod, "_fps_cuda", fps_mod.fps_plain),
               "knn": (knn_mod, "_knn_card", knn_mod.knn_plain),
-              "pool": (pool_mod, "_pool_card", pool_mod.pool_plain)}
+              "pool": (pool_mod, "_pool_card", pool_mod.pool_plain),
+              "knn_features": (knn_mod, "_knn_features_cuda",
+                               knn_mod.knn_features_plain)}
     originals = {n: getattr(m, a) for n, (m, a, _) in points.items()}
     cuda_fns = {"fps": fps_mod._fps_cuda, "knn": knn_mod._knn_cuda,
                 "pool": pool_mod._pool_cuda,
                 "pool_bwd": pool_mod._pool_bwd_cuda,
                 "fps_pruned": pruned_mod._fps_pruned_cuda,
-                "cross_pool": cross_mod._cross_pool_cuda}
+                "cross_pool": cross_mod._cross_pool_cuda,
+                "knn_features": knn_mod._knn_features_cuda}
     plain_fns = {"fps": fps_mod.fps_plain, "knn": knn_mod.knn_plain,
                  "pool": pool_mod.pool_plain, "pool_bwd": pool_bwd_plain,
                  "fps_pruned": pruned_mod.fps_pruned_plain,
-                 "cross_pool": cross_mod.cross_pool_plain}
+                 "cross_pool": cross_mod.cross_pool_plain,
+                 "knn_features": knn_mod.knn_features_plain}
 
     @contextlib.contextmanager
     def swapped(make):
@@ -1270,8 +1283,8 @@ def main() -> int:
 
     @contextlib.contextmanager
     def feature_recorder(store):
-        """Record every feature-space kNN of the FG cross layers (plain
-        PyTorch on both paths): (k, keys, queries, indices)."""
+        """Record every feature-space kNN of the FG cross layers: (k,
+        keys, queries, indices)."""
         entry = cross_nn.knn_features
 
         def run(k, keys, query):
@@ -1321,6 +1334,8 @@ def main() -> int:
         if name == "knn":
             k, xyz, q = args
             return f"k={k} B={q.shape[0]} {q.shape[1]}x{xyz.shape[1]}"
+        if name == "knn_features":
+            return feature_site(args)
         if name == "cross_pool":
             u, idx, ws = args[0], args[2], args[3]
             return (f"L={len(ws)} B={u.shape[0]} N={idx.shape[1]} "
@@ -1348,6 +1363,32 @@ def main() -> int:
             f"{same_d2}")
         check(same_idx and same_d2,
               f"knn {site('knn', args)} is not bit-identical to knn_plain")
+
+    def feature_identical(args):
+        """The feature kNN kernel against knn_features_plain at one call
+        site: indices equal in order, and its distances equal
+        feature_distance's at them (in the plain version's 2048-query
+        chunks), bit for bit."""
+        k, keys, q = args[:3]
+        with torch.inference_mode():
+            dk, ik = knn_mod._knn_features_cuda(k, keys, q, with_dist=True)
+            ip = knn_mod.knn_features_plain(k, keys, q)
+            dp = torch.cat([knn_mod.feature_distance(c, keys).gather(
+                -1, i.long()) for c, i in zip(torch.split(q, 2048, dim=1),
+                                              torch.split(ip, 2048, dim=1))],
+                dim=1)
+        same_idx, same_d = torch.equal(ik, ip), torch.equal(dk, dp)
+        results["knn_features"]["max_abs_err"] = max(
+            results["knn_features"]["max_abs_err"],
+            float((dk - dp).abs().max()))
+        log(f"  knn_features {feature_site(args)} ("
+            f"{knn_mod.feature_rows(q.shape[0], q.shape[1])} queries a "
+            f"block): indices equal in order {same_idx} "
+            f"({int((ik != ip).sum())} differ), distances equal {same_d} "
+            f"({int((dk != dp).sum())} differ)")
+        check(same_idx and same_d, f"knn_features {feature_site(args)} is "
+              "not bit-identical to the plain version")
+
     def fps_identical(args, label="", every_g=False):
         """The FPS kernel against fps_plain at one site, bit for bit: at
         the plan's G and, with every_g, at every G whose clusters fit the
@@ -2240,6 +2281,8 @@ def main() -> int:
             fps_identical(args)
         for args in p_calls["knn"]:
             knn_identical(args)
+        for args in p_calls["knn_features"]:
+            feature_identical(args)
         with torch.inference_mode():
             times = {n: time_sites(n, p_calls[n]) for n in points}
         for n, t in times.items():
@@ -2329,31 +2372,21 @@ def main() -> int:
         for args in f_calls["pool"][t_fwd["pool"]:]])
     f_times = time_path(f_sites, "fast KD step")
     ff_ms = feature_ms(f_feat)
-    log(f"  feature kNN (plain PyTorch: the expansion's matrix product and "
-        f"a topk of k + 1, tied rows sorted) per fast KD step: {ff_ms:.4f} "
-        f"ms over {len(f_feat)} sites ("
+    log(f"  feature kNN (csrc/knn_features.cu) per fast KD step: "
+        f"{ff_ms:.4f} ms over {len(f_feat)} sites ("
         + ", ".join(feature_site(a_) for a_ in f_feat) + ")")
-    # the selection rule against a stable sort of every row, on the first
-    # 2048-query chunk of the largest site
-    k, keys, q, _ = max(f_feat, key=lambda a_: a_[2].shape[1])
+    for args in f_feat:
+        feature_identical(args)
     with torch.inference_mode():
-        d = knn_mod.feature_distance(q[:, :2048], keys)
-        pick_ms = cuda_ms(lambda: knn_mod.smallest_k(d, k), FEATURE_REPS, 1)
-        sort_ms = cuda_ms(lambda: torch.sort(d, dim=-1, stable=True)[1][
-            ..., :k].int(), FEATURE_REPS, 1)
-        dist_ms = cuda_ms(lambda: knn_mod.feature_distance(q[:, :2048], keys),
-                          FEATURE_REPS, 1)
-        same = torch.equal(knn_mod.smallest_k(d, k), torch.sort(
-            d, dim=-1, stable=True)[1][..., :k].int())
-    del d
-    log(f"  feature kNN, one chunk of {feature_site((k, keys, q[:, :2048]))}: "
-        f"distances {dist_ms:.4f} ms, selection (topk of k + 1, ties "
-        f"sorted) {pick_ms:.4f} ms, a stable sort of every row instead "
-        f"{sort_ms:.4f} ms; indices equal {same}")
-    check(same, "the feature kNN's selection differs from a stable sort")
+        f_knn = time_sites("knn_features", [a_[:3] for a_ in f_feat])
+    log(f"  knn_features per fast KD step: {f_knn['ms']:.4f} ms, plain "
+        f"{f_knn['plain_ms']:.4f} ms, bound {f_knn['bound_ms']:.5f} ms "
+        f"({f_knn['bound_by']})")
     fast_feature = dict(ms=ff_ms, sites=[feature_site(a_) for a_ in f_feat],
-                        chunk=dict(distance_ms=dist_ms, select_ms=pick_ms,
-                                   stable_sort_ms=sort_ms))
+                        launches=f_launches["knn_features"],
+                        kernel_ms=f_knn["ms"], plain_ms=f_knn["plain_ms"],
+                        bound_ms=f_knn["bound_ms"],
+                        bound_by=f_knn["bound_by"])
     del f_sites, f_calls, f_feat, f_step, f_opt, f_student, f_teacher
     deadline("fast KD timing")
 
@@ -3044,14 +3077,16 @@ def main() -> int:
             "no path",
         two_layers=timing(cp2_times, 0),
         c16_sites=timing(cp16_times, 0)))
-    plain_ops = [dict(
-        name="knn_features", route="torch",
-        source="kd_pointcloud_tpu_torch/ops/knn.py",
-        replaces="kd_pointcloud_tpu/ops/knn.py:142 knn_point_dist (XLA, no Pallas kernel)",
-        fast_kd_step=fast_feature,
-        eval_forward={n: dict(ms=v["feature_knn_ms"],
+    kernel_rows.append(dict(
+        name="knn_features", route="cuda", **KERNEL_META["knn_features"],
+        max_abs_err=results["knn_features"]["max_abs_err"],
+        library_ms=None, fast_kd_step=fast_feature,
+        eval_forward={n: dict(timing(v["times"]["knn_features"],
+                                     v["launches"]["knn_features"]),
+                              call_ms=v["feature_knn_ms"],
                               sites=v["feature_sites"])
-                      for n, v in fg_eval.items()}), dict(
+                      for n, v in fg_eval.items()}))
+    plain_ops = [dict(
         name="inventory", route="torch",
         source="kd_pointcloud_tpu_torch/nn/experimental.py",
         replaces="kd_pointcloud_tpu/nn/experimental.py (XLA around the "

@@ -12,8 +12,7 @@ these hold, each observed at the call; else it runs eager, as the module
 call it wraps:
   * the model declares its forward free of host syncs (``host_sync_free``:
     BidPointFlowNet's, derived from its layer types, holds for every
-    configuration but cross="fg", whose feature kNN syncs); a model that
-    declares nothing runs eager;
+    configuration); a model that declares nothing runs eager;
   * the model is not in training mode;
   * the inputs are CUDA tensors;
   * no kernel count is on (ops.kernels.is_counting(), so perf.flop_count

@@ -174,8 +174,7 @@ class BidPointFlowNet(nn.Module):
     def host_sync_free(self) -> bool:
         """Whether the forward never waits on the card from the host, so
         that it can be captured as a CUDA graph (eval/graphs.py): no layer
-        declares a host sync (SYNCS_HOST). Every configuration is, but a
-        cross="fg" one, whose feature kNN syncs once a query chunk."""
+        declares a host sync (SYNCS_HOST). Every configuration is."""
         return not any(getattr(m, "SYNCS_HOST", False)
                        for m in self.modules())
 

@@ -109,14 +109,9 @@ class CrossLayerLightFG(CrossLayerLight):
     base features alone, so an iterative model computes it once a level
     (feature_knn) and passes it as feat_idx."""
 
-    # the feature kNN waits on the card once a query chunk (ops/knn.py
-    # smallest_k), so a forward through this layer cannot be captured as a
-    # CUDA graph (BidPointFlowNet.host_sync_free)
-    SYNCS_HOST = True
-
     def feature_knn(self, fgfeat1, fgfeat2):
-        """(idx12, idx21) of the feature half: plain PyTorch (knn_features),
-        as the JAX package's search is XLA."""
+        """(idx12, idx21) of the feature half (knn_features: the feature
+        kNN kernel on the card)."""
         return bid_knn(self.nsample // 2, fgfeat1, fgfeat2, knn_features)
 
     def forward(self, pc1, pc2, feat1, feat2, fgfeat1, fgfeat2,

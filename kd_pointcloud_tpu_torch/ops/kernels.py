@@ -58,7 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0, "fps_pruned": 0,
-            "cross_pool": 0}
+            "cross_pool": 0, "knn_features": 0}
 WIDTH_LAUNCHES: dict = {}
 EVAL_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
@@ -89,6 +89,10 @@ _SIGNATURES = {
                                  _P),
     # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
     "kdpc_cross_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # query, keys, |query|^2, |keys|^2, B, S, N, D, K, queries a block,
+    # out_idx, out_d (or null), stream
+    "kdpc_knn_features": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P),
 }
 
 _lock = threading.Lock()
@@ -280,6 +284,14 @@ def kernel_work(name: str, *args) -> tuple:
         B, S, N = q.shape[0], q.shape[1], xyz.shape[1]
         # per pair: 3 mul + 2 add (q.k), 1 mul, 1 sub, 1 add, 1 compare
         return B * S * N * 9, (B * S + B * N) * 12 + B * S * k * 8
+    if name == "knn_features":
+        # per (query, key) pair and channel one multiply-add (2 operations,
+        # as FlopCounterMode counts the plain version's product); reads
+        # queries, keys and their squared norms, writes k indices a query
+        k, keys, q = args
+        B, S, N, D = q.shape[0], q.shape[1], keys.shape[1], keys.shape[2]
+        return (2 * B * S * N * D,
+                (B * S + B * N) * (D + 1) * 4 + B * S * k * 4)
     if name == "fps_pruned":
         # dirty: the sub-block updates this run's data needed (all clouds);
         # per round and sub-block the sphere test (3 sub, 5 mul, 4 add,

@@ -18,9 +18,13 @@ float-float mode) is not reproduced: the port's search is exact.
 
 ``knn_features`` is the search in feature space (D = 32-256, the FG cross
 layer's feature half). The JAX package runs it as XLA, no Pallas kernel
-(its fused kernel takes 3-D points only), so it is plain PyTorch on every
-device: the expansion with its cross term as one float32 matrix product,
-and an exact selection, ties toward the lower key index.
+(its fused kernel takes 3-D points only). Its plain version,
+``knn_features_plain``, is the expansion with its cross term as one
+float32 matrix product (``feature_distance``) and a stable sort of each
+row. On the card it is csrc/knn_features.cu: the distances in registers,
+each query's list in shared memory, nothing read back to the host, so a
+forward through it can be captured as a CUDA graph; it ranks exactly as
+the plain version, ties toward the lower key index.
 
 The distances carry a gradient, as the JAX package's exact path's do (the
 self-supervised loss weights by them): on the CPU through the plain
@@ -50,6 +54,7 @@ SMS = 132                       # streaming multiprocessors of an H100
 FILL_THREADS = SMS * 1024       # lanes that keep every SM half occupied
 ONE_LANE_QUERIES = SMS * 256    # queries that give 8 warps an SM at L = 1
 MIN_BLOCKS = 2 * SMS
+FEATURE_DIMS = (32, 64, 128, 256)   # widths of the feature kNN kernel
 
 
 @kernels.plain("knn")
@@ -159,36 +164,64 @@ def feature_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return d.add_((dst * dst).sum(-1)[..., None, :])
 
 
-def smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices (int32) of the k smallest entries of each row of d, in
-    ascending order, equal values lower index first (lax.top_k's order).
+def feature_rows(B: int, S: int) -> int:
+    """Queries a block of the feature kNN kernel for B clouds of S queries:
+    128 (8 rows a thread), or 64 where 128 would give fewer blocks than
+    two an SM."""
+    return 128 if B * -(-S // 128) >= MIN_BLOCKS else 64
 
-    torch.topk of the k + 1 smallest values: where they strictly increase,
-    the first k are the only possible answer, whatever order topk gives
-    equal values (it promises none). A row with two equal values among
-    them takes a stable sort of the row instead; such rows are rare on
-    real features, so finding them (one host sync a call) costs less than
-    sorting every row."""
-    vals, idx = torch.topk(d, min(k + 1, d.shape[-1]), dim=-1,
-                           largest=False)
-    tied = (vals[..., 1:] == vals[..., :-1]).any(-1)
-    idx = idx[..., :k]
-    with annotate("knn_features.sync"):
-        any_tied = bool(tied.any())
-    if any_tied:
-        rows = tied.nonzero(as_tuple=True)
-        idx[rows] = torch.sort(d[rows], dim=-1, stable=True)[1][..., :k]
-    return idx.int()
+
+@kernels.plain("knn_features")
+def knn_features_plain(k: int, keys: torch.Tensor, query: torch.Tensor
+                       ) -> torch.Tensor:
+    """Indices (B, S, k) int32: a stable sort of each row of
+    feature_distance, in query chunks of 2048 as the JAX package's exact
+    knn_point."""
+    return torch.cat([torch.sort(feature_distance(q, keys), dim=-1,
+                                 stable=True)[1][..., :k].int()
+                      for q in torch.split(query, _CHUNK, dim=1)], dim=1)
+
+
+def _knn_features_cuda(k: int, keys: torch.Tensor, query: torch.Tensor,
+                       with_dist: bool = False):
+    """The feature kNN kernel: indices (B, S, k) int32, and with with_dist
+    (d, idx), d its (B, S, k) distances. |q|^2 and |x|^2 are torch's sums,
+    as feature_distance's."""
+    kernels.check_tensor("knn_features keys", keys, torch.float32, 3)
+    kernels.check_tensor("knn_features query", query, torch.float32, 3)
+    B, N, D = keys.shape
+    S = query.shape[1]
+    if D not in FEATURE_DIMS:
+        raise ValueError(f"knn_features kernel takes D in {FEATURE_DIMS}, "
+                         f"got {D}")
+    if k not in KERNEL_K or k > N:
+        raise ValueError(f"knn_features kernel takes 1 <= k <= "
+                         f"min({MAX_K}, N), got k={k}, N={N}")
+    kernels.check_on_card("knn_features", keys, query)
+    if keys.data_ptr() % 16 or query.data_ptr() % 16:
+        raise ValueError("knn_features: keys and queries must be 16-byte "
+                         "aligned")
+    qn = (query * query).sum(-1)
+    kn = (keys * keys).sum(-1)
+    idx = torch.empty(B, S, k, dtype=torch.int32, device=keys.device)
+    d = (torch.empty(B, S, k, dtype=torch.float32, device=keys.device)
+         if with_dist else None)
+    kernels.launch("knn_features", query.data_ptr(), keys.data_ptr(),
+                   qn.data_ptr(), kn.data_ptr(), B, S, N, D, k,
+                   feature_rows(B, S), idx.data_ptr(),
+                   None if d is None else d.data_ptr())
+    kernels.report("knn_features", k, keys, query)
+    return (d, idx) if with_dist else idx
 
 
 def knn_features(k: int, keys: torch.Tensor, query: torch.Tensor
                  ) -> torch.Tensor:
     """Indices (B, S, k) int32 of the k nearest rows of keys (B, N, D)
-    around each query row (B, S, D), in feature space: feature_distance
-    and smallest_k in query chunks of 2048, as the JAX package's exact
-    knn_point. Plain PyTorch on every device, without autograd (indices
-    carry no gradient). The span knn_features holds the search, and
-    knn_features.sync each chunk's host sync (perf/trace.py)."""
+    around each query row (B, S, D), in feature space, ascending, ties
+    toward the lower key index, without autograd (indices carry no
+    gradient). A CUDA tensor goes through the kernel, a CPU tensor through
+    knn_features_plain. The span knn_features holds the search
+    (perf/trace.py)."""
     if (keys.dim() != 3 or query.dim() != 3 or keys.shape[0] != query.shape[0]
             or keys.shape[2] != query.shape[2] or not 0 < k <= keys.shape[1]):
         raise ValueError(f"knn_features takes (B, N, D) keys and (B, S, D) "
@@ -196,8 +229,11 @@ def knn_features(k: int, keys: torch.Tensor, query: torch.Tensor
                          f"{tuple(keys.shape)}, queries "
                          f"{tuple(query.shape)}, k={k}")
     with annotate("knn_features"), torch.no_grad():
-        return torch.cat([smallest_k(feature_distance(q, keys), k)
-                          for q in torch.split(query, _CHUNK, dim=1)], dim=1)
+        if keys.device.type == "cuda":
+            return _knn_features_cuda(k, keys, query)
+        if keys.device.type == "cpu":
+            return knn_features_plain(k, keys, query)
+    raise ValueError(f"no feature kNN for device {keys.device}")
 
 
 def _check(k: int, xyz: torch.Tensor, query: torch.Tensor) -> None:

@@ -40,9 +40,8 @@ program's spans (``SPANS``):
   model.cost_volume
       a PointConvFlow cost volume and its two kNN searches
       (nn/experimental.py; inside model.cross on cross="pwc"'s path)
-  knn_features, knn_features.sync
-      the feature-space kNN and its host sync, one a 2048-query chunk
-      (ops/knn.py)
+  knn_features
+      the feature-space kNN (ops/knn.py), one a call
 
 An eval request answered by a CUDA graph's replay (eval/graphs.py) opens
 eval.forward only: the model's Python, and its spans, ran at capture.
@@ -81,8 +80,8 @@ TRACE_FILE = "trace.json"
 # launch (the pool backward's second kernel runs only where d_u or d_v is
 # wanted); a mangled name puts the name's length (digits) before it and
 # its template arguments (I...E) after it
-_FIRST_KERNEL = re.compile(r"(?<![A-Za-z_])(fps_pruned|fps|knn|pool_bwd_mask"
-                           r"|pool|cross_pool)_kernel(?=[<(I])")
+_FIRST_KERNEL = re.compile(r"(?<![A-Za-z_])(fps_pruned|fps|knn_features|knn"
+                           r"|pool_bwd_mask|pool|cross_pool)_kernel(?=[<(I])")
 _COUNTER = {"pool_bwd_mask": "pool_bwd"}
 WARM_UP_KERNELS = 512
 SETTLE_KERNELS = 512
@@ -91,7 +90,7 @@ SPANS = ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
          "kd.optimizer", "train.forward", "train.loss", "train.backward",
          "train.optimizer", "eval.forward", "model.encode", "model.cross",
          "model.cost_volume", "model.flow_head", "model.upsample",
-         "knn_features", "knn_features.sync")
+         "knn_features")
 OUTSIDE = "outside"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _OFF = contextlib.nullcontext()

@@ -10,8 +10,9 @@ count and profile read as before.
 
 On the card (marker ``card``; each skips without one): the teacher at
 8192 points graphed against eager over seeded pairs in rotation, a kept
-result after the next request, new weights between requests, fg left
-eager, a trace around replays, and the operation count. This file imports
+result after the next request, new weights between requests, fg graphed
+against eager in rotation (its feature kNN kernel 4 launches a request), a
+trace around replays, and the operation count. This file imports
 no JAX; run it on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -q \\
@@ -38,8 +39,8 @@ from kd_pointcloud_tpu_torch.perf.trace import kernel_records
 torch.set_num_threads(1)
 
 N = 256
-SYNC_FREE = {"teacher": True, "lighttoken_res": True, "fg": False,
-             "bifeat": False}
+SYNC_FREE = {"teacher": True, "lighttoken_res": True, "fg": True,
+             "bifeat": True}
 # aten ops that wait on the device from the host, or bring host data to it
 HOST_SYNCS = {"aten.is_nonzero", "aten._local_scalar_dense", "aten.item",
               "aten.nonzero", "aten.nonzero_numpy", "aten.equal",
@@ -98,8 +99,9 @@ def test_model_without_the_property_is_not_sync_free():
 def test_declaration_holds_in_the_dispatched_ops(name):
     """A tiny eval forward, the kernels' plain versions hidden (they stand
     for kernels, which sync nothing): a sync-free model dispatches no op
-    that waits on the device or reads the host; the others do (smallest_k's
-    bool(tied.any()))."""
+    that waits on the device or reads the host, fg and bifeat's feature
+    kNN (a kernel on the card) among them; a model that declared a sync
+    would dispatch one."""
     fwd = make_eval_forward(_model(name))
     with kernels.counting(), _OpNames() as ops:
         fwd(*_pair())
@@ -263,12 +265,20 @@ def test_new_weights_show_in_the_replay(card, pairs):
 
 
 @pytest.mark.card
-def test_fg_runs_eager(card, pairs):
-    fwd = make_eval_forward(_card_model("fg", 0, card))
+def test_graphed_fg_is_bit_identical_in_rotation(card, pairs):
+    """fg's forward, sync-free with the feature kNN kernel, replays as a
+    graph, bit-identical to eager; every request runs the kernel once a
+    level (4 launches)."""
+    model = _card_model("fg", 0, card).eval()
+    want = [_direct(model, p) for p in pairs]
+    fwd = make_eval_forward(model)
     kernels.reset_launches()
-    for i in range(3):
-        fwd(*pairs[i])
-    assert eval_graph_counts() == dict(captures=0, replays=0, eager=3)
+    for i in range(2 * PAIRS):
+        got = fwd(*pairs[i % PAIRS])
+        assert torch.equal(got, want[i % PAIRS]), i
+    assert eval_graph_counts() == dict(captures=1, replays=2 * PAIRS - 1,
+                                       eager=1)
+    assert kernels.LAUNCHES["knn_features"] == 4 * 2 * PAIRS
 
 
 @pytest.mark.card

@@ -66,13 +66,19 @@ def test_port_imports_no_jax_flax_or_jax_package(path):
 def test_kernel_sources_are_plain_cuda():
     names = [p.name for p in kernels.sources()]
     assert names == ["cross_pool.cu", "fps.cu", "fps_pruned.cu", "knn.cu",
-                     "pool_fused.cu", "pool_fused_bwd.cu"]
+                     "knn_features.cu", "pool_fused.cu", "pool_fused_bwd.cu"]
     for p in kernels.sources():
         src = p.read_text()
         assert "torch/extension.h" not in src
         assert 'extern "C"' in src
-        # what it replaces
-        assert re.search(r"(kd_pointcloud_tpu/ops/pallas|attic)/\w+\.py", src)
+        # what it replaces: a Pallas kernel, or (the feature kNN) none, in
+        # place of the JAX package's XLA search
+        if p.name == "knn_features.cu":
+            assert ("Replaces no Pallas kernel" in src
+                    and "kd_pointcloud_tpu/ops/knn.py" in src)
+        else:
+            assert re.search(r"(kd_pointcloud_tpu/ops/pallas|attic)/\w+\.py",
+                             src)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.LINK_FLAGS
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "kernels")
@@ -147,7 +153,8 @@ def test_launch_counters_start_and_reset():
     kernels.LAUNCHES["knn"] += 2
     kernels.reset_launches()
     assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0,
-                                "fps_pruned": 0, "cross_pool": 0}
+                                "fps_pruned": 0, "cross_pool": 0,
+                                "knn_features": 0}
 
 
 def test_launch_counts_by_width(monkeypatch):
@@ -217,7 +224,7 @@ def _load_chip_smoke():
 
 def test_chip_smoke_imports_without_a_card():
     mod = _load_chip_smoke()
-    zero = {"fps_pruned": 0, "cross_pool": 0}
+    zero = {"fps_pruned": 0, "cross_pool": 0, "knn_features": 0}
     assert mod.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12,
                                "pool_bwd": 0, **zero}
     assert mod.PER_TRAIN_STEP == {"fps": 1, "knn": 19, "pool": 12,
@@ -231,11 +238,13 @@ def test_chip_smoke_imports_without_a_card():
     # layer's three pools, forward and backward
     assert mod.STUDENT_C16 == {"pool C=16": 3, "pool_bwd C=16": 3}
     assert set(mod.KERNEL_META) == set(kernels.LAUNCHES)
-    for meta in mod.KERNEL_META.values():
+    for name, meta in mod.KERNEL_META.items():
         assert (ROOT / meta["source"]).exists()
         path, line = meta["replaces"].split(":")
-        assert "pl.pallas_call" in \
-            (ROOT / path).read_text().splitlines()[int(line) - 1]
+        # the feature kNN stands for the JAX package's XLA search
+        want = ("def knn_point_dist(" if name == "knn_features"
+                else "pl.pallas_call")
+        assert want in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
 def test_chip_smoke_counts_unrecorded_launches_inside_the_forward():
@@ -436,7 +445,7 @@ def test_chip_smoke_preprocess_phase_runs_on_cpu(monkeypatch):
         assert not any(out["launches"][label].values())
     assert mod.PER_SELFSUP_STEP == {"fps": 1, "knn": 35, "pool": 12,
                                     "pool_bwd": 12, "fps_pruned": 0,
-                                    "cross_pool": 0}
+                                    "cross_pool": 0, "knn_features": 0}
 
 
 @pytest.mark.parametrize("alone", [False, True])

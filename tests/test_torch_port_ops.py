@@ -58,7 +58,8 @@ def test_fps_wrapper_on_cpu_is_plain_and_counts_nothing():
     torch.testing.assert_close(furthest_point_sample(xyz, 50),
                                fps_plain(xyz, 50), rtol=0, atol=0)
     assert kernels.LAUNCHES == {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0,
-                                "fps_pruned": 0, "cross_pool": 0}
+                                "fps_pruned": 0, "cross_pool": 0,
+                                "knn_features": 0}
 
 
 def test_square_distance_matches_jax():

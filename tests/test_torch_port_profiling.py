@@ -68,7 +68,8 @@ def test_forward_count_is_dense_plus_kernel_work(name, monkeypatch):
     sites = []
     for mod, attr, kname in ((fps, "fps_plain", "fps"),
                              (knn, "knn_plain", "knn"),
-                             (pool_fused, "pool_plain", "pool")):
+                             (pool_fused, "pool_plain", "pool"),
+                             (knn, "knn_features_plain", "knn_features")):
         def record(*args, _plain=getattr(mod, attr), _name=kname):
             sites.append((_name, _plain, args))
             return _plain(*args)
@@ -88,9 +89,11 @@ def test_forward_count_is_dense_plus_kernel_work(name, monkeypatch):
     assert got["kernel_bytes"] == sum(w[1] for w in work)
     assert got["flops"] == dense + sum(w[0] for w in work)
     calls = {n: sum(1 for s in sites if s[0] == n) for n in
-             ("fps", "knn", "pool")}
-    assert {n: v["calls"] for n, v in got["by_kernel"].items()} == calls
+             ("fps", "knn", "pool", "knn_features")}
+    assert {n: v["calls"] for n, v in got["by_kernel"].items()} == {
+        n: c for n, c in calls.items() if c}
     assert calls["fps"] == 1 and calls["pool"] == 12
+    assert calls["knn_features"] == (4 if name == "fg" else 0)
 
 
 def test_plain_versions_report_their_kernels_work():

@@ -183,17 +183,17 @@ def test_spans_change_nothing_the_program_computes(run):
 
 
 def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
-    """One knn_features.sync span a smallest_k call; every span of a KD
-    step and of the model; eval.forward in an eval forward; the train.*
-    phases and model.cost_volume in a pointpwc train step."""
+    """One knn_features span a feature kNN call, and no sync span; every
+    span of a KD step and of the model; eval.forward in an eval forward;
+    the train.* phases and model.cost_volume in a pointpwc train step."""
     calls = []
-    plain = knn.smallest_k
+    plain = knn.knn_features_plain
 
-    def counted(d, k):
+    def counted(k, keys, query):
         calls.append(k)
-        return plain(d, k)
+        return plain(k, keys, query)
 
-    monkeypatch.setattr(knn, "smallest_k", counted)
+    monkeypatch.setattr(knn, "knn_features_plain", counted)
     t_model, s_model = _model("bifeat", 1), _model("fg", 0)
     step = make_fast_distill_step(t_model, s_model, make_optimizer(s_model))
     fwd = make_eval_forward(_model("fg", 2))
@@ -212,8 +212,8 @@ def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
         assert names.count(phase) == 1, phase
     assert names.count("model.cost_volume") == 4     # one a level
     # four levels of feature kNN a forward, three forwards
-    assert names.count("knn_features") == 12
-    assert names.count("knn_features.sync") == len(calls) == 12
+    assert names.count("knn_features") == len(calls) == 12
+    assert not [n for n in names if n.endswith(".sync")]
     spans = [e for e in events if e.get("name") in SPANS]
     t0 = min(e["ts"] for e in spans)
     t1 = max(e["ts"] + e["dur"] for e in spans)
@@ -336,8 +336,8 @@ def test_cost_volume_readers_without_spans_or_bound_read_nothing(spans,
 def test_idle_by_span_names_each_gap_by_its_innermost_span():
     """Spans 0-5000 us; device busy 200-600, 1200-1500 (and a copy
     1500-1550), 2000-2500, 2900-5100, 5300-5400: the gaps start in
-    kd.teacher (0, 600), model.encode (1550), knn_features.sync (2500)
-    and outside every span (5100). The settle kernel over 0 and spans
+    kd.teacher (0, 600), model.encode (1550), knn_features (2500) and
+    outside every span (5100). The settle kernel over 0 and spans
     of other names are left out."""
     def x(cat, name, ts, dur):
         return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur)
@@ -347,7 +347,6 @@ def test_idle_by_span_names_each_gap_by_its_innermost_span():
               x("user_annotation", "kd.student", 1000, 4000),
               x("user_annotation", "model.encode", 1000, 1000),
               x("user_annotation", "knn_features", 2000, 1000),
-              x("user_annotation", "knn_features.sync", 2500, 300),
               x("cpu_op", "aten::mm", 600, 900),
               x("kernel", "spin_kernel", -50, 200),
               x("kernel", "a", 200, 400), x("kernel", "b", 1200, 300),
@@ -356,7 +355,7 @@ def test_idle_by_span_names_each_gap_by_its_innermost_span():
                                                2200),
               x("kernel", "d", 5300, 100)]
     got = idle_by_span(events)
-    assert list(got) == ["kd.teacher", "model.encode", "knn_features.sync",
+    assert list(got) == ["kd.teacher", "model.encode", "knn_features",
                          OUTSIDE]
     assert [round(v * 1e6, 3) for v in got.values()] == [800, 450, 400, 200]
     assert idle_by_span([e for e in events
