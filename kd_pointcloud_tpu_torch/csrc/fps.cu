@@ -55,9 +55,6 @@
 // the plain version's order ((dx*dx + dy*dy) + dz*dz), so nvcc cannot
 // contract it into FMAs and the indices are bit-identical to the plain
 // version's.
-//
-// kdpc_fps_skeleton runs the same rounds without the distance pass (a key
-// made from the round and the lane), to time the chain alone.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -115,7 +112,7 @@ __device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
       : "memory");
 }
 
-template <int G, int PPT, bool kSkeleton>
+template <int G, int PPT>
 __global__ void __launch_bounds__(kCloudThreads / G, 1)
     fps_kernel(const float* __restrict__ xyz, int n, int m,
                int* __restrict__ out) {
@@ -178,43 +175,36 @@ __global__ void __launch_bounds__(kCloudThreads / G, 1)
 
   for (int r = 1; r < m; ++r) {
     const int par = r & 1;
-    int key, gi;
-    float cx = 0.f, cy = 0.f, cz = 0.f;
-    if constexpr (kSkeleton) {
-      key = (r * 131 + t * 7) & 0xffff;
-      gi = base + t;
-    } else {
-      float v[PPT];
-      int vj[PPT];
+    float v[PPT];
+    int vj[PPT];
 #pragma unroll
-      for (int j = 0; j < PPT; ++j) {
-        const float dx = __fsub_rn(px[j], lx);
-        const float dy = __fsub_rn(py[j], ly);
-        const float dz = __fsub_rn(pz[j], lz);
-        const float d = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        dmin[j] = fminf(dmin[j], d);
-        v[j] = dmin[j];
-        vj[j] = j;
-      }
-      // the thread's first maximum by a tree of pairs: the right one (the
-      // higher slots, the higher indices) wins only when strictly larger
-#pragma unroll
-      for (int s = 1; s < PPT; s *= 2)
-#pragma unroll
-        for (int j = 0; j < PPT; j += 2 * s)
-          if (v[j + s] > v[j]) {
-            v[j] = v[j + s];
-            vj[j] = vj[j + s];
-          }
-      const bool real = v[0] >= 0.f;  // padding alone is -1
-      key = real ? __float_as_int(v[0]) : -1;
-      gi = real ? wbase + 32 * vj[0] + lane : INT_MAX;
-      const int at = t + vj[0] * T;
-      cx = sx[at];
-      cy = sy[at];
-      cz = sz[at];
+    for (int j = 0; j < PPT; ++j) {
+      const float dx = __fsub_rn(px[j], lx);
+      const float dy = __fsub_rn(py[j], ly);
+      const float dz = __fsub_rn(pz[j], lz);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      dmin[j] = fminf(dmin[j], d);
+      v[j] = dmin[j];
+      vj[j] = j;
     }
+    // the thread's first maximum by a tree of pairs: the right one (the
+    // higher slots, the higher indices) wins only when strictly larger
+#pragma unroll
+    for (int s = 1; s < PPT; s *= 2)
+#pragma unroll
+      for (int j = 0; j < PPT; j += 2 * s)
+        if (v[j + s] > v[j]) {
+          v[j] = v[j + s];
+          vj[j] = vj[j + s];
+        }
+    const bool real = v[0] >= 0.f;  // padding alone is -1
+    const int key = real ? __float_as_int(v[0]) : -1;
+    const int gi = real ? wbase + 32 * vj[0] + lane : INT_MAX;
+    const int own = t + vj[0] * T;  // the candidate's place in the slice
+    const float cx = sx[own];
+    const float cy = sy[own];
+    const float cz = sz[own];
     const int wk = __reduce_max_sync(kFull, key);
     const int wi = __reduce_min_sync(kFull, key == wk ? gi : INT_MAX);
     // one writer a warp: the lane of the winner (a warp of padding alone
@@ -272,7 +262,7 @@ int smem_bytes() {
   return slice < kOneBlockSmem ? kOneBlockSmem : slice;
 }
 
-template <int G, int PPT, bool kSkeleton>
+template <int G, int PPT>
 cudaLaunchConfig_t config(int b, int smem, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -289,9 +279,9 @@ cudaLaunchConfig_t config(int b, int smem, cudaStream_t stream,
   return cfg;
 }
 
-template <int G, int PPT, bool kSkeleton>
+template <int G, int PPT>
 cudaError_t prepare() {
-  auto kernel = fps_kernel<G, PPT, kSkeleton>;
+  auto kernel = fps_kernel<G, PPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<G, PPT>());
@@ -301,34 +291,34 @@ cudaError_t prepare() {
   return err;
 }
 
-template <int G, int PPT, bool kSkeleton>
+template <int G, int PPT>
 cudaError_t launch(const float* xyz, int b, int n, int m, int* out,
                    cudaStream_t stream) {
   // the function attributes, set once: they cost host time on every call
-  static const cudaError_t prepared = prepare<G, PPT, kSkeleton>();
+  static const cudaError_t prepared = prepare<G, PPT>();
   if (prepared != cudaSuccess) return prepared;
   const int smem = smem_bytes<G, PPT>();
   if (G == 1) {
-    fps_kernel<G, PPT, kSkeleton>
+    fps_kernel<G, PPT>
         <<<b, kCloudThreads, smem, stream>>>(xyz, n, m, out);
     return cudaGetLastError();
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      config<G, PPT, kSkeleton>(b, smem, stream, &attr);
+      config<G, PPT>(b, smem, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fps_kernel<G, PPT, kSkeleton>, xyz, n, m, out);
+      &cfg, fps_kernel<G, PPT>, xyz, n, m, out);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int G, int PPT>
 cudaError_t clusters(int* count) {
-  static const cudaError_t prepared = prepare<G, PPT, false>();
+  static const cudaError_t prepared = prepare<G, PPT>();
   if (prepared != cudaSuccess) return prepared;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<G, PPT, false>(
+  const cudaLaunchConfig_t cfg = config<G, PPT>(
       1, smem_bytes<G, PPT>(), 0, &attr);
-  return cudaOccupancyMaxActiveClusters(count, fps_kernel<G, PPT, false>,
+  return cudaOccupancyMaxActiveClusters(count, fps_kernel<G, PPT>,
                                         &cfg);
 }
 
@@ -343,15 +333,15 @@ template <int G>
 cudaError_t launch_g(const float* xyz, int b, int n, int m, int* out,
                      cudaStream_t stream) {
   switch (points_a_thread(n)) {
-    case 1: return launch<G, 1, false>(xyz, b, n, m, out, stream);
-    case 2: return launch<G, 2, false>(xyz, b, n, m, out, stream);
-    case 4: return launch<G, 4, false>(xyz, b, n, m, out, stream);
-    case 8: return launch<G, 8, false>(xyz, b, n, m, out, stream);
-    case 16: return launch<G, 16, false>(xyz, b, n, m, out, stream);
+    case 1: return launch<G, 1>(xyz, b, n, m, out, stream);
+    case 2: return launch<G, 2>(xyz, b, n, m, out, stream);
+    case 4: return launch<G, 4>(xyz, b, n, m, out, stream);
+    case 8: return launch<G, 8>(xyz, b, n, m, out, stream);
+    case 16: return launch<G, 16>(xyz, b, n, m, out, stream);
     case 32:
       // G = 1 would need 384 kB for its slice
       if constexpr (G > 1)
-        return launch<G, 32, false>(xyz, b, n, m, out, stream);
+        return launch<G, 32>(xyz, b, n, m, out, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -384,22 +374,6 @@ extern "C" int kdpc_fps_clusters(int g, int* count) {
     case 4: return (int)clusters<4, 8>(count);
     case 8: return (int)clusters<8, 8>(count);
     case 16: return (int)clusters<16, 8>(count);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// the rounds' synchronisation alone, at 8192 points or fewer: the chain
-// that the distance pass adds to
-extern "C" int kdpc_fps_skeleton(const float* xyz, int b, int n, int m,
-                                 int g, int* out, cudaStream_t stream) {
-  if (b <= 0 || m <= 0 || m > n || n > 8 * kCloudThreads)
-    return (int)cudaErrorInvalidValue;
-  switch (g) {
-    case 1: return (int)launch<1, 8, true>(xyz, b, n, m, out, stream);
-    case 2: return (int)launch<2, 8, true>(xyz, b, n, m, out, stream);
-    case 4: return (int)launch<4, 8, true>(xyz, b, n, m, out, stream);
-    case 8: return (int)launch<8, 8, true>(xyz, b, n, m, out, stream);
-    case 16: return (int)launch<16, 8, true>(xyz, b, n, m, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

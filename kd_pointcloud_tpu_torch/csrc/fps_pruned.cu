@@ -63,10 +63,6 @@
 // and csrc/fps.cu, and the skip decisions (dirty_count) to
 // fps_pruned_plain's.
 //
-// kdpc_fps_pruned_skeleton runs the same rounds without the sphere tests
-// and updates (a key made from the round and the sub-block), to time the
-// chain of folds, slots and barriers alone.
-//
 // The TPU kernel's folded (8B, N/8) layout, bit-packed dirty masks in SMEM,
 // fat-window quarantine and its interpret / unroll / restrict_scan options
 // are TPU mechanics and are not ported.
@@ -254,7 +250,7 @@ __device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
       : "memory");
 }
 
-template <int G, bool kSkeleton>
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
     fps_pruned_kernel(const float* __restrict__ planes,
                       const int* __restrict__ pidx,
@@ -323,26 +319,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     //    dirty sub-blocks' minima and cached winners, up to four at a time,
     //    the last four with the warp's winner
     Cand ww;
-    if constexpr (kSkeleton) {
-      if (own < nb) h.win.key = (r * 131 + own * 7) & 0xffff;
-      ww = fold(h.win);
-    } else {
-      unsigned mask = __ballot_sync(
-          kFull, dist2(h.cx, h.cy, h.cz, lx, ly, lz) < h.thr2);
-      dirty += __popc(mask);
-      while (__popc(mask) > 4)
-        update<4>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
-      switch (__popc(mask)) {
-        case 0: ww = fold(h.win); break;
-        case 1: ww = update<1>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
-          break;
-        case 2: ww = update<2>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
-          break;
-        case 3: ww = update<3>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
-          break;
-        default:
-          ww = update<4>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
-      }
+    unsigned mask = __ballot_sync(
+        kFull, dist2(h.cx, h.cy, h.cz, lx, ly, lz) < h.thr2);
+    dirty += __popc(mask);
+    while (__popc(mask) > 4)
+      update<4>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
+    switch (__popc(mask)) {
+      case 0: ww = fold(h.win); break;
+      case 1: ww = update<1>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
+        break;
+      case 2: ww = update<2>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
+        break;
+      case 3: ww = update<3>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
+        break;
+      default:
+        ww = update<4>(h, s_pt, s_pidx, mask, warp, lx, ly, lz, lane);
     }
     // 2. the warp's winner into its slot of the round; the slots alternate
     //    by round parity: a warp writes round r + 2's only after round
@@ -399,11 +390,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the dynamic shared memory of a block holding nb sub-blocks: its points
 int smem_bytes(int nb) { return nb * kSub * kPointBytes; }
 
-template <int G, bool kSkeleton>
+template <int G>
 cudaError_t launch(const float* planes, const int* pidx, const float* centers,
                    const float* radii, const float* xyz, int b, int n, int m,
                    int* out, int* dirty_count, cudaStream_t stream) {
-  auto kernel = fps_pruned_kernel<G, kSkeleton>;
+  auto kernel = fps_pruned_kernel<G>;
   // the attribute, set once: it costs host time on every call otherwise
   static const cudaError_t prepared = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,25 +431,6 @@ int blocks_a_cloud(int n) {
   return n_sub <= kBlockSub ? 1 : (n_sub <= 2 * kBlockSub ? 2 : 4);
 }
 
-template <bool kSkeleton>
-int dispatch(const float* planes, const int* pidx, const float* centers,
-             const float* radii, const float* xyz, int b, int n, int m,
-             int* out, int* dirty_count, cudaStream_t stream) {
-  if (b <= 0 || m <= 0 || m > n || n % 1024 != 0 || n / kSub > kMaxSub)
-    return (int)cudaErrorInvalidValue;
-  switch (blocks_a_cloud(n)) {
-    case 1:
-      return (int)launch<1, kSkeleton>(planes, pidx, centers, radii, xyz, b,
-                                       n, m, out, dirty_count, stream);
-    case 2:
-      return (int)launch<2, kSkeleton>(planes, pidx, centers, radii, xyz, b,
-                                       n, m, out, dirty_count, stream);
-    default:
-      return (int)launch<4, kSkeleton>(planes, pidx, centers, radii, xyz, b,
-                                       n, m, out, dirty_count, stream);
-  }
-}
-
 }  // namespace
 
 // n % 1024 == 0, n <= 32768; dirty_count (B,) int32, zeroed by the caller,
@@ -468,18 +440,17 @@ extern "C" int kdpc_fps_pruned(const float* planes, const int* pidx,
                                const float* xyz, int b, int n, int m,
                                int* out, int* dirty_count,
                                cudaStream_t stream) {
-  return dispatch<false>(planes, pidx, centers, radii, xyz, b, n, m, out,
-                         dirty_count, stream);
-}
-
-// the rounds' folds and exchange alone, without sphere tests or updates:
-// the chain that the pruned updates add to (dirty_count is not written)
-extern "C" int kdpc_fps_pruned_skeleton(const float* planes, const int* pidx,
-                                        const float* centers,
-                                        const float* radii, const float* xyz,
-                                        int b, int n, int m, int* out,
-                                        int* dirty_count,
-                                        cudaStream_t stream) {
-  return dispatch<true>(planes, pidx, centers, radii, xyz, b, n, m, out,
-                        nullptr, stream);
+  if (b <= 0 || m <= 0 || m > n || n % 1024 != 0 || n / kSub > kMaxSub)
+    return (int)cudaErrorInvalidValue;
+  switch (blocks_a_cloud(n)) {
+    case 1:
+      return (int)launch<1>(planes, pidx, centers, radii, xyz, b, n, m, out,
+                            dirty_count, stream);
+    case 2:
+      return (int)launch<2>(planes, pidx, centers, radii, xyz, b, n, m, out,
+                            dirty_count, stream);
+    default:
+      return (int)launch<4>(planes, pidx, centers, radii, xyz, b, n, m, out,
+                            dirty_count, stream);
+  }
 }

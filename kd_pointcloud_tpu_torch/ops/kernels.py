@@ -70,8 +70,6 @@ _SIGNATURES = {
     "kdpc_fps": (_P, _I, _I, _I, _I, _P, _P),
     # G, out count (no stream: an occupancy query)
     "kdpc_fps_clusters": (_I, _P),
-    # as kdpc_fps: the rounds without their distance pass, for timing
-    "kdpc_fps_skeleton": (_P, _I, _I, _I, _I, _P, _P),
     # query, keys, B, S, N, K, lanes, queries a block, out_idx, out_d2,
     # stream
     "kdpc_knn": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -83,10 +81,6 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P),
     # planes, pidx, centers, radii, xyz, B, N, M, out_idx, dirty, stream
     "kdpc_fps_pruned": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # as kdpc_fps_pruned: the rounds without sphere tests and updates, for
-    # timing (dirty not written)
-    "kdpc_fps_pruned_skeleton": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                 _P),
     # u, idx, v, wt, bias, B, N1, N2, K, C, L, out, stream
     "kdpc_cross_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # query, keys, |query|^2, |keys|^2, B, S, N, D, K, queries a block,

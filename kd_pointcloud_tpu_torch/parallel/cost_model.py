@@ -17,7 +17,8 @@ fabric of an HGX board a GPU's ring neighbour gets all of it: one link of
 less of it.
 
 The per-card step time (per_chip_step_ms) is an argument, to be filled with
-a measurement on the card (chip_smoke.py measures the teacher's train step).
+a measurement on the card (the benchmark's benchmark/entries/train.py
+measures a train step).
 """
 
 from __future__ import annotations

@@ -36,6 +36,8 @@ from kd_pointcloud_tpu_torch.perf import (eval_graph_counts, flop_count,
                                           profile_model, trace)
 from kd_pointcloud_tpu_torch.perf.trace import kernel_records
 
+from torch_port_checks import card  # noqa: F401  (the card tests' gate)
+
 torch.set_num_threads(1)
 
 N = 256
@@ -191,13 +193,6 @@ def test_flop_count_and_profile_model_as_before():
 
 POINTS = 8192
 PAIRS = 6
-
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.fixture(scope="module")

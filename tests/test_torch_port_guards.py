@@ -1,11 +1,13 @@
-"""Guards of the port: what it imports, how it treats devices, and that its
-card-only pieces (chip_smoke.py, the ctypes kernel loader) import and refuse
-cleanly on a machine without a card."""
+"""Guards of the port: what it, chip_smoke.py and the card tests import,
+how it treats devices, that its card-only pieces (chip_smoke.py, the
+ctypes kernel loader, the launchers) refuse cleanly on a machine without a
+card, and the card tests' launch counts and drives
+(tests/torch_port_checks.py) and chip_smoke.py's kernels line rehearsed on
+the CPU."""
 
 import importlib.util
 import json
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +26,8 @@ from kd_pointcloud_tpu_torch.attic import cross_pool, fps_pruned
 from kd_pointcloud_tpu_torch.ops import fps, kernels, knn, pool_fused
 from kd_pointcloud_tpu_torch.train import overfit
 
+import torch_port_checks as checks
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(kd_pointcloud_tpu_torch.__file__).resolve().parent
 FORBIDDEN = re.compile(
@@ -31,8 +35,18 @@ FORBIDDEN = re.compile(
     r"cpp_extension)(\.|\s|$)", re.M)
 
 
+# run on the card with --noconftest: tests/conftest.py imports JAX, which
+# that machine does not have
+CARD_FILES = ("test_torch_port_card_kernels.py",
+              "test_torch_port_card_paths.py",
+              "test_torch_port_eval_graph.py",
+              "test_torch_port_knn_features.py", "torch_port_checks.py",
+              "torch_parallel_ranks.py")
+
+
 def _port_files():
-    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tests" / name for name in CARD_FILES]
     assert len(files) > 10
     for name in ("train/overfit.py", "train/loop.py", "train/state.py",
                  "losses/multiscale.py", "losses/kd.py", "models/bridge.py",
@@ -204,14 +218,30 @@ def test_train_entry_runs_on_cpu_without_jax():
     assert np.isfinite(summary["loss_last"])
 
 
-def _kernel_work(name, args):
-    return kernels.kernel_work(name, *args)
+# each CUDA source and the JAX kernel it stands for (file:line of its
+# pl.pallas_call; the feature kNN replaces the JAX package's XLA search)
+KERNEL_SOURCES = {
+    "fps": ("fps.cu", "kd_pointcloud_tpu/ops/pallas/fps_pallas.py:212"),
+    "knn": ("knn.cu", "kd_pointcloud_tpu/ops/pallas/knn_fused.py:319"),
+    "pool": ("pool_fused.cu",
+             "kd_pointcloud_tpu/ops/pallas/pool_fused.py:173"),
+    "pool_bwd": ("pool_fused_bwd.cu",
+                 "kd_pointcloud_tpu/ops/pallas/pool_fused.py:269"),
+    "fps_pruned": ("fps_pruned.cu", "attic/fps_pruned.py:329"),
+    "cross_pool": ("cross_pool.cu", "attic/cross_pool.py:90"),
+    "knn_features": ("knn_features.cu", "kd_pointcloud_tpu/ops/knn.py:142"),
+}
 
 
-def test_chip_smoke_takes_its_work_counts_from_the_package():
-    src = (ROOT / "chip_smoke.py").read_text()
-    assert "kernel_work" in src and "def work(" not in src
-    assert "def mask_entries(" not in src
+@pytest.mark.parametrize("name", sorted(KERNEL_SOURCES))
+def test_kernel_source_stands_for_a_jax_kernel(name):
+    assert set(KERNEL_SOURCES) == set(kernels.LAUNCHES)
+    source, replaces = KERNEL_SOURCES[name]
+    path, line = replaces.split(":")
+    assert path in (kernels.CSRC / source).read_text()
+    want = ("def knn_point_dist(" if name == "knn_features"
+            else "pl.pallas_call")
+    assert want in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
 def _load_chip_smoke():
@@ -222,119 +252,214 @@ def _load_chip_smoke():
     return mod
 
 
-def test_chip_smoke_imports_without_a_card():
+def test_chip_smoke_runs_every_card_file():
+    """chip_smoke.py runs each test file that holds a card test, and each
+    of those imports no JAX (CARD_FILES above)."""
     mod = _load_chip_smoke()
+    holding = {f"tests/{p.name}" for p in (ROOT / "tests").glob("*.py")
+               if re.search(r"^@pytest\.mark\.card$", p.read_text(), re.M)}
+    assert set(mod.CARD_FILES) == holding
+    assert {f.split("/")[1] for f in mod.CARD_FILES} <= set(CARD_FILES)
+
+
+def test_chip_smoke_fails_without_a_card(monkeypatch):
+    """Without a card it exits non-zero before it runs a test."""
+    mod = _load_chip_smoke()
+
+    def run(_args):
+        raise AssertionError("the card tests ran without a card")
+    monkeypatch.setattr(pytest, "main", run)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 1
+
+
+@pytest.mark.parametrize("device_name, kernel", [
+    ("void fps_kernel<4>(float const*, int, int, int, int*)", "fps"),
+    ("void knn_kernel<32, 2>(float const*, float const*, int)", "knn"),
+    ("void knn_features_kernel<64, 128>(float const*, int*)",
+     "knn_features"),
+    ("void pool_kernel<64, 8>(float const*, int const*, float*)", "pool"),
+    ("void pool_bwd_kernel<128>(float const*, float*)", "pool_bwd"),
+    ("void pool_bwd_mask_kernel<16>(float const*, int*)", "pool_bwd"),
+    ("_Z11pool_kernelILi64ELi8EEvPKfPKiS1_", "pool"),
+    ("void cross_pool_kernel<64>(float const*, float*)", None),
+    ("void fps_pruned_kernel<2>(float const*, int*)", None),
+    ("void at::native::vectorized_elementwise_kernel<4>(int)", None),
+    ("ampere_sgemm_128x64_nn", None)])
+def test_chip_smoke_names_each_kernel_apart(device_name, kernel):
+    """The kernels line reads each path kernel's device time by its device
+    name: the pool's backward is two kernels, and the attic's kernels and
+    PyTorch's own are none of the path's."""
+    assert _load_chip_smoke().kernel_name(device_name) == kernel
+
+
+def test_chip_smoke_kernel_rows_on_cpu(monkeypatch):
+    """The kernels line's rows, from the plain versions at tiny_config on
+    the CPU: the calls of each KD step are its launches on the card (the
+    pool's backward is autograd's here), each bound lies between the
+    larger of the step's totals over the peaks and their sum, and no
+    device time is read off the card."""
+    from benchmark.work import PEAK_BYTES, PEAK_FLOPS
+
+    mod = _load_chip_smoke()
+    rows = mod.kernel_rows("cpu", tiny_config, batch=2, n_points=256)
+    for path in mod.KD_PATHS:
+        t_name, s_name = checks.KD_PATHS[path]
+        want = checks.distill_launches(PRESETS[t_name], PRESETS[s_name])
+        got = {r["kernel"]: r for r in rows if r["path"] == path}
+        assert {k: r["launches"] for k, r in got.items()} == {
+            k: n for k, n in want.items() if n and k != "pool_bwd"}
+        run, _ = _step(path)
+        with kernels.counting() as count:
+            run()
+        for name, r in got.items():
+            ops = count.ops[name] / PEAK_FLOPS * 1e3
+            nbytes = count.bytes[name] / PEAK_BYTES * 1e3
+            assert max(ops, nbytes) <= r["bound_ms"] * (1 + 1e-9)
+            assert r["bound_ms"] <= (ops + nbytes) * (1 + 1e-9)
+            assert r["device_ms"] is None and r["roofline_pct"] is None
+
+
+def test_card_checks_launch_counts():
+    """The launches the card tests hold each path to, from the wiring."""
     zero = {"fps_pruned": 0, "cross_pool": 0, "knn_features": 0}
-    assert mod.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12,
-                               "pool_bwd": 0, **zero}
-    assert mod.PER_TRAIN_STEP == {"fps": 1, "knn": 19, "pool": 12,
+    assert checks.PER_FORWARD == {"fps": 1, "knn": 19, "pool": 12,
+                                  "pool_bwd": 0, **zero}
+    assert checks.PER_TRAIN_STEP == {"fps": 1, "knn": 19, "pool": 12,
+                                     "pool_bwd": 12, **zero}
+    assert checks.PER_KD_STEP == {"fps": 2, "knn": 38, "pool": 24,
                                   "pool_bwd": 12, **zero}
-    # the frozen teacher's forward adds no backward
-    assert mod.PER_KD_STEP == {"fps": 2, "knn": 38, "pool": 24,
-                               "pool_bwd": 12, **zero}
-    for per in (mod.PER_FORWARD, mod.PER_TRAIN_STEP, mod.PER_KD_STEP):
+    assert checks.PER_SELFSUP_STEP == {"fps": 1, "knn": 35, "pool": 12,
+                                       "pool_bwd": 12, **zero}
+    for per in (checks.PER_FORWARD, checks.PER_TRAIN_STEP,
+                checks.PER_KD_STEP, checks.PER_SELFSUP_STEP):
         assert set(per) == set(kernels.LAUNCHES)
+    assert checks.forward_launches(PRESETS["teacher"]) == checks.PER_FORWARD
+    for student in ("lighttoken_res", "student"):
+        assert checks.distill_launches(PRESETS["teacher"],
+                                       PRESETS[student]) == checks.PER_KD_STEP
+    assert checks.distill_launches(PRESETS["bifeat"], PRESETS["fg"]) == dict(
+        checks.PER_KD_STEP, knn=49, pool=33, knn_features=8)
     # a student KD step launches the pool pair at C = 16 at the l0 cross
     # layer's three pools, forward and backward
-    assert mod.STUDENT_C16 == {"pool C=16": 3, "pool_bwd C=16": 3}
-    assert set(mod.KERNEL_META) == set(kernels.LAUNCHES)
-    for name, meta in mod.KERNEL_META.items():
-        assert (ROOT / meta["source"]).exists()
-        path, line = meta["replaces"].split(":")
-        # the feature kNN stands for the JAX package's XLA search
-        want = ("def knn_point_dist(" if name == "knn_features"
-                else "pl.pallas_call")
-        assert want in (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert checks.STUDENT_C16 == {"pool C=16": 3, "pool_bwd C=16": 3}
+    assert PRESETS["student"].level_channels[0] == 16
 
 
-def test_chip_smoke_counts_unrecorded_launches_inside_the_forward():
-    """The trace check reads the launches inside the traced forward's
-    annotation: a lost record of the settle before it does not count, one
-    inside it does, and the report names its place and op."""
-    mod = _load_chip_smoke()
-
-    def launch(ts, corr):
-        return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
-                "tid": 1, "args": {"correlation": corr}}
-
-    events = [
-        {"cat": "user_annotation", "name": mod.TRACED_FORWARD, "ts": 100,
-         "dur": 50, "tid": 1},
-        {"cat": "cpu_op", "name": "aten::cat", "ts": 118, "dur": 5,
-         "tid": 1},
-        launch(10, 1), launch(110, 2), launch(120, 3), launch(140, 4),
-        {"cat": "kernel", "name": "k", "args": {"correlation": 2}},
-        {"cat": "kernel", "name": "k", "args": {"correlation": 4}},
-    ]
-    assert mod.unrecorded_launches(events) == 2
-    assert mod.unrecorded_launches(events, mod.TRACED_FORWARD) == 1
-    assert len(mod._launches(events, mod.TRACED_FORWARD)) == 3
-    assert mod.unrecorded_detail(events, mod.TRACED_FORWARD) == \
-        "#1 of 3 (cudaLaunchKernel, in aten::cat)"
-    assert mod.unrecorded_launches(events, "no such annotation") == 0
+def _tiny(name, seed=0):
+    return checks.model(tiny_config(name), seed, "cpu")
 
 
-def test_chip_smoke_ptxas_summary():
-    text = ("ptxas info    : Compiling entry function "
-            "'_ZN12_GLOBAL__N_110knn_kernelILi32EEEvPKfS2_iiPiPf' for "
-            "'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, "
-            "4 bytes spill loads\nptxas info    : Used 96 registers, "
-            "16384 bytes smem, 400 bytes cmem[0]\n")
-    assert _load_chip_smoke().ptxas_summary(text) == [
-        "knn_kernel<32>: 96 registers, 16384 B static smem, "
-        "spill stores 8 B, loads 4 B"]
+def _tiny_batch(b=2):
+    return overfit.synthetic_batches(1, b, 256, 3, "cpu")[0]
 
 
-@pytest.mark.parametrize("kernel", ["fps_kernel", "fps_pruned_kernel",
-                                    "knn_kernel", "pool_kernel",
-                                    "pool_bwd_kernel", "pool_bwd_mask_kernel",
-                                    "cross_pool_kernel"])
-def test_chip_smoke_names_each_kernel_apart(kernel):
-    """No kernel's name is read as the tail of another's, in ptxas's
-    mangled names and in the profiler's demangled ones."""
-    mod = _load_chip_smoke()
-    name = kernel[:-len("_kernel")]
-    mangled = (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi64EEEvPKfPKiS2_"
-               "S2_S2_iiiiPf")
-    text = (f"ptxas info    : Compiling entry function '{mangled}' for "
-            "'sm_90a'\nptxas info    : Used 40 registers, 0 bytes smem\n")
-    assert mod.ptxas_summary(text) == [
-        f"{kernel}<64>: 40 registers, 0 B static smem, "]
-    demangled = (f"void (anonymous namespace)::{kernel}<64>(float const*, "
-                 "int const*, float*)")
-    assert re.search(mod.KERNEL_RE + "<", demangled).group(1) == name
+def _step(path):
+    """fn() running one step of path through the plain versions at
+    tiny_config, and the launches it makes on the card."""
+    from kd_pointcloud_tpu_torch import losses
+    from kd_pointcloud_tpu_torch.eval import make_eval_forward
+    from kd_pointcloud_tpu_torch.train import make_optimizer, make_train_step
+
+    batch = _tiny_batch()
+    inputs = [batch[k] for k in ("pos1", "pos2", "norm1", "norm2")]
+    if path == "eval":
+        fwd = make_eval_forward(_tiny("teacher"))
+        return lambda: fwd(*inputs), checks.PER_FORWARD
+    if path == "train":
+        net = _tiny("teacher")
+        step = make_train_step(net, make_optimizer(net))
+        return lambda: step(batch), checks.PER_TRAIN_STEP
+    if path == "selfsup":
+        net = _tiny("student").train()
+
+        def selfsup():
+            out = net(*inputs)
+            losses.multi_scale_chamfer_smooth_curvature(
+                out["pc1"], out["pc2"], out["flows"])[0].backward()
+        return selfsup, checks.PER_SELFSUP_STEP
+    t_name, s_name = checks.KD_PATHS[path]
+    step = checks.kd_step(path, _tiny(t_name, checks.TEACHER_SEED),
+                          _tiny(s_name, checks.STUDENT_SEED))
+    return lambda: step(batch), checks.distill_launches(
+        PRESETS[t_name], PRESETS[s_name])
 
 
-def test_chip_smoke_tie_case_and_zero_gradient_leaves():
-    """The smoke run's crafted tie case ties exactly on the CPU's plain
-    version, and its zero-gradient rule picks the 8 Dense biases that feed
+@pytest.mark.parametrize("path", ["eval", "train", "kd", "student_kd",
+                                  "fast_kd", "selfsup"])
+def test_path_kernel_calls_counted_on_cpu(path, monkeypatch):
+    """Each path's calls of the plain versions, counted by
+    kernels.counting() at tiny_config (the pool backward's as the pool
+    calls autograd differentiates), are the launches the card tests hold
+    the same path to."""
+    differentiated = []
+    plain = pool_fused.pool_plain
+
+    def pool(u, idx, v, weight, bias):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (u, v, weight, bias)):
+            differentiated.append(1)
+        return plain(u, idx, v, weight, bias)
+
+    monkeypatch.setattr(pool_fused, "pool_plain", pool)
+    run, want = _step(path)
+    with kernels.counting() as count:
+        run()
+    got = dict(count.calls, pool_bwd=len(differentiated))
+    assert {n: c for n, c in got.items() if c} == {
+        n: c for n, c in want.items() if c}
+
+
+@pytest.mark.parametrize("name", ["teacher", "student", "serving_v3",
+                                  "student2", "non_linear", "bifeat", "fg",
+                                  "no_cross", "vote"])
+def test_forward_launches_follow_the_wiring(name):
+    """forward_launches, which the card tests hold each preset's eval
+    forward to, counts what the forward calls: the plain versions' calls
+    at tiny_config."""
+    from kd_pointcloud_tpu_torch.eval import make_eval_forward
+
+    batch = _tiny_batch(1)
+    fwd = make_eval_forward(_tiny(name))
+    with kernels.counting() as count:
+        fwd(*(batch[k] for k in ("pos1", "pos2", "norm1", "norm2")))
+    want = checks.forward_launches(PRESETS[name])
+    assert count.calls == {n: c for n, c in want.items() if c}
+    assert want == checks.forward_launches(tiny_config(name))
+
+
+def test_card_checks_tie_case_and_zero_gradient_leaves():
+    """The card tests' crafted tie case ties exactly on the CPU's plain
+    version, and their zero-gradient rule picks the 8 Dense biases that feed
     the flow heads' BatchNorms."""
-    mod = _load_chip_smoke()
     rng = np.random.RandomState(0)
     u = torch.from_numpy(rng.standard_normal((2, 20, 32)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((2, 16, 32)).astype(np.float32))
     idx = torch.from_numpy(rng.randint(0, 20, (2, 16, 8)).astype(np.int32))
     w, b = torch.eye(32), torch.ones(32)
-    u, idx, v, w, b, _ = mod.tie_case(u, idx, v, w, b, v)
+    u, idx, v, w, b, _ = checks.tie_case(u, idx, v, w, b, v)
     assert torch.equal(u[:, 0], u[:, 1]) and float(b[::4].abs().max()) == 0
     h = pool_fused.group_points(u, idx) + v[:, :, None, :]
     assert float(h[:, 4:8].abs().max()) == 0.0
     ct = torch.zeros(2, 16, 32)
     ct[:, :4] = 1.0                     # the two-row ties only
-    d_u = mod.pool_bwd_plain(u, idx, v, w, b, ct)[0]
+    d_u = checks.pool_bwd_plain(u, idx, v, w, b, ct)[0]
     assert float(d_u[:, 0].abs().max()) > 0
     torch.testing.assert_close(d_u[:, 0], d_u[:, 1], rtol=0, atol=0)
     model = BidPointFlowNet(tiny_config("teacher"), device="cpu")
     zero = [n for n, _ in model.named_parameters()
-            if mod.zero_gradient_leaf(n)]
+            if checks.zero_gradient_leaf(n)]
     assert len(zero) == 8 and all(n.endswith("dense.bias") for n in zero)
 
 
-def test_chip_smoke_work_counts():
+def _kernel_work(name, args):
+    return kernels.kernel_work(name, *args)
+
+
+def test_kernel_work_counts():
     """The pool backward's operations count d_h0, d_w and d_bias only at
     the max mask: every neighbour when all tie, one a (query, output
-    channel) when none do. (chip_smoke.py takes its counts from
-    ops/kernels.py kernel_work.)"""
+    channel) when none do."""
     work = _kernel_work
     B, N1, N2, K, C = 3, 50, 100, 32, 32
     u = torch.zeros(B, N2, C)
@@ -358,7 +483,7 @@ def test_chip_smoke_work_counts():
     assert ops_u == dense + B * N1 * C * (4 * C + 1)
 
 
-def test_chip_smoke_work_counts_attic_kernels():
+def test_kernel_work_counts_attic_kernels():
     """Pruned FPS counts its sphere tests every round and FPS's work only
     at the sub-block updates the data needed; the cross pool at L = 1
     counts what the pool counts, and each further layer 2 C^2 + 2 C a
@@ -382,16 +507,15 @@ def test_chip_smoke_work_counts_attic_kernels():
     assert bytes2 - bytes1 == (C * C + C) * 4
 
 
-def test_chip_smoke_workflow_runs_on_cpu(monkeypatch):
-    """The smoke run's workflow phase end to end on the CPU at tiny_config
+def test_card_workflow_runs_on_cpu(monkeypatch):
+    """The card tests' workflow end to end on the CPU at tiny_config
     and small trees: the five cli entries from the shipped YAMLs (loader
     pools of 2 workers), the resume from the best checkpoint, evaluate, and
     the device and host eval paths held against each other; the plain
     versions launch no kernel."""
-    mod = _load_chip_smoke()
     for name in ("teacher", "lighttoken_res", "bifeat", "fg"):
         monkeypatch.setitem(PRESETS, name, tiny_config(name))
-    out = mod.workflow("cpu", 256, ft3d=dict(train=8, val=4, points=300),
+    out = checks.workflow("cpu", 256, ft3d=dict(train=8, val=4, points=300),
                        kitti=dict(mapped=(0, 1, 5), points=500), steps=1)
     assert list(out["runs"]) == [
         "train", "resume", "evaluate", "eval KITTI device",
@@ -408,30 +532,25 @@ def test_chip_smoke_workflow_runs_on_cpu(monkeypatch):
     assert datasets.FlyingThings3DSubset.TRAIN_COUNT == 19640   # restored
 
 
-def test_chip_smoke_mesh_phase_runs_on_cpu(monkeypatch, tmp_path):
-    """The smoke run's mesh phase on the CPU at tiny_config and 256 points:
+def test_card_mesh_checks_run_on_cpu(tmp_path):
+    """The card tests' mesh checks on the CPU at tiny_config and 256 points:
     (a) a gloo world of one rank in this process against the no-mesh step,
-    (b) two spawned gloo ranks against one step over their global batch,
-    under the card's gates; the plain versions launch no kernel."""
-    mod = _load_chip_smoke()
-    # the spawned ranks import the module by name to find mesh_rank
-    monkeypatch.setitem(sys.modules, "chip_smoke", mod)
-    monkeypatch.syspath_prepend(str(ROOT))
-    out = mod.mesh_phase(str(tmp_path), tiny_config("teacher"), "cpu", 256)
+    (b) two gloo ranks spawned by tests/torch_parallel_ranks.py against
+    one step over their global batch, under the card's gates; the plain
+    versions launch no kernel."""
+    out = checks.mesh_phase(str(tmp_path), tiny_config("teacher"), "cpu", 256)
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     assert out["launches"] == zero
-    assert out["rank_launches"] == [zero] * mod.MESH_RANKS
-    assert out["ms"] > 0 and out["no_mesh_ms"] > 0
+    assert out["rank_launches"] == [zero] * checks.MESH_RANKS
 
 
-def test_chip_smoke_preprocess_phase_runs_on_cpu(monkeypatch):
-    """The smoke run's raw-frames-to-eval step on the CPU at tiny_config
+def test_card_preprocess_checks_run_on_cpu(monkeypatch):
+    """The card tests' raw-frames-to-eval drive on the CPU at tiny_config
     and small frames: both preprocessors' entries (one worker each), then
     the FT3D and KITTI evals, each scene's points as written and the six
     metrics and loss finite; the plain versions launch no kernel."""
-    mod = _load_chip_smoke()
     monkeypatch.setitem(PRESETS, "teacher", tiny_config("teacher"))
-    out = mod.preprocess_eval(
+    out = checks.preprocess_eval(
         "cpu", 256, ft3d=dict(train=1, val=2, height=30, width=40),
         kitti=dict(frames=(0, 3), height=25, width=50), workers=1)
     assert list(out["scenes"]) == ["FT3D val", "KITTI"]
@@ -443,21 +562,3 @@ def test_chip_smoke_preprocess_phase_runs_on_cpu(monkeypatch):
             "epe3d", "acc3ds", "acc3dr", "outliers", "epe2d", "acc2d",
             "loss"}
         assert not any(out["launches"][label].values())
-    assert mod.PER_SELFSUP_STEP == {"fps": 1, "knn": 35, "pool": 12,
-                                    "pool_bwd": 12, "fps_pruned": 0,
-                                    "cross_pool": 0, "knn_features": 0}
-
-
-@pytest.mark.parametrize("alone", [False, True])
-def test_chip_smoke_fails_without_a_card(tmp_path, alone):
-    """No card: a non-zero exit and no result line, in the checkout and in
-    a directory holding chip_smoke.py alone."""
-    script = ROOT / "chip_smoke.py"
-    if alone:
-        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the no-card refusal cannot be shown")
-    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout

@@ -30,6 +30,8 @@ from kd_pointcloud_tpu_torch.models import PRESETS, BidPointFlowNet
 from kd_pointcloud_tpu_torch.nn import cross as cross_nn
 from kd_pointcloud_tpu_torch.ops import kernels, knn
 
+from torch_port_checks import card  # noqa: F401  (the card tests' gate)
+
 torch.set_num_threads(1)
 
 CHUNK = 2048
@@ -143,14 +145,6 @@ def test_feature_rows_plan():
 SITES = [(8192, 32), (2048, 64), (512, 128), (256, 256)]
 
 
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
 def _plain_with_distances(k, keys, query):
     """(d, idx): knn_features_plain's indices and feature_distance at
     them, in the plain version's chunks."""
@@ -181,10 +175,12 @@ def test_kernel_equals_plain_at_the_site_shapes(card, B, S, D):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name,batch", [("fg", 1), ("bifeat", 8)])
+@pytest.mark.parametrize("name,batch", [("fg", 1), ("bifeat", 8),
+                                        ("fg", 8)])
 def test_kernel_equals_plain_at_a_forwards_sites(card, name, batch):
     """The feature kNN sites of a seeded forward at 8192 points: fg at
-    batch 1 (the eval cell), bifeat at batch 8 (the KD cell's teacher)."""
+    batch 1 (the eval cell), bifeat and fg at batch 8 (the KD cell's
+    teacher and student)."""
     model = BidPointFlowNet(PRESETS[name], device=card,
                             generator=torch.Generator().manual_seed(3))
     pairs = synthetic_pairs(batch, 8192, seed=11)

@@ -2,7 +2,7 @@
 
 Each kernel wrapper takes its plain version for a CPU tensor, so these hold
 the plain versions (the semantics the CUDA kernels are compared with on the
-card by chip_smoke.py) against the JAX package as its own CPU tests run it:
+card by tests/test_torch_port_card_kernels.py) against the JAX package as its own CPU tests run it:
 the XLA FPS loop, knn_point(method="exact") and pool_mlp_max's _pool_ref.
 Inputs come from numpy seeds.
 """

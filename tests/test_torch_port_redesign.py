@@ -1,8 +1,8 @@
 """The rules the redesigned kNN and pool-backward CUDA kernels implement,
 held on the CPU against the port's plain versions and the JAX package.
 
-The kernels run only on a card (chip_smoke.py holds them there bit for bit
-and within POOL_BWD_TOL); these tests hold their arithmetic, emulated in
+The kernels run only on a card (tests/test_torch_port_card_kernels.py
+holds them there bit for bit and within POOL_BWD_TOL); these tests hold their arithmetic, emulated in
 torch beside the plain versions:
 
 - kNN: knn_striped (L lanes a query, keys in steps of L consecutive
@@ -177,8 +177,9 @@ def test_knn_striped_ties_across_lanes_keep_the_lower_index(k, lanes):
 
 def _path_knn_sites(batch):
     """(B, S, N, k) of the 19 kNN call sites of one teacher forward at
-    8192 points (chip_smoke.py phase 3 lists them): the cloud pair stacked
-    (2 batch) where both clouds search, batch alone where one does."""
+    8192 points (tests/test_torch_port_card_kernels.py records them): the
+    cloud pair stacked (2 batch) where both clouds search, batch alone
+    where one does."""
     n0, n1, n2, n3, n4 = PRESETS["teacher"].npoints
     two, one = 2 * batch, batch
     return [(two, n1, n0, 16), (two, n2, n1, 16), (two, n3, n2, 16),

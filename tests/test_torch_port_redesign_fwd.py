@@ -1,8 +1,8 @@
 """The rules the redesigned FPS and pool-forward CUDA kernels implement,
 held on the CPU against the port's plain versions and the JAX package.
 
-The kernels run only on a card (chip_smoke.py holds them there bit for bit
-and within 1e-4 x max|plain|); these tests hold their arithmetic, emulated
+The kernels run only on a card (tests/test_torch_port_card_kernels.py
+holds them there bit for bit and within 1e-4 x max|plain|); these tests hold their arithmetic, emulated
 in torch beside the plain versions:
 
 - FPS: fps_cluster (a cloud split over G blocks x 32 / G warps x 32 lanes
@@ -46,8 +46,8 @@ from kd_pointcloud_tpu_torch.ops.pool_fused import (KERNEL_C, pool_plain,
 torch.set_num_threads(1)
 CSRC = Path(fps_mod.__file__).resolve().parent.parent / "csrc"
 # clusters of G blocks of the FPS kernel resident at once (one block an
-# SM), by cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3, as
-# chip_smoke.py phase 3 prints them: the GPCs hold 15 clusters of 8, not 16
+# SM), by cudaOccupancyMaxActiveClusters (ops/fps.py card_clusters) on an
+# NVIDIA H100 80GB HBM3: the GPCs hold 15 clusters of 8, not 16
 H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 

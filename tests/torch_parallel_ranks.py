@@ -1,13 +1,14 @@
-"""Rank processes for tests/test_torch_port_parallel*.py.
+"""Rank processes for tests/test_torch_port_parallel*.py and the mesh
+checks of tests/torch_port_checks.py.
 
 start(world, cases, workdir) spawns `world` processes joined in a gloo
 group (file:// under workdir, so concurrent test workers never share a
-port) that run every named case of CASES on each rank; collect() returns
-each rank's results. A case is a function of the rank's mesh (and keyword
-inputs); the tests call the same function in their own process with a mesh
-of one rank to get the single-device answer over the global batch. This
-module imports torch and the port only, never JAX, so a rank starts in
-about a second.
+port; on the CPU, or every rank on one card) that run every named case of
+CASES on each rank; collect() returns each rank's results. A case is a
+function of the rank's mesh (and keyword inputs); the tests call the same
+function in their own process with a mesh of one rank to get the
+single-device answer over the global batch. This module imports torch and
+the port only, never JAX, so a rank starts in about a second.
 """
 
 from __future__ import annotations
@@ -300,18 +301,40 @@ def teacher_args(tree, tag, batch_size, per_device) -> Config:
     return postprocess(Config(raw))
 
 
+def case_mesh_step(mesh, cfg, n_points, batch, model_seed, batch_seed):
+    """One train step of a cfg model (seeded by model_seed) in float32 on
+    the mesh's device, on this rank's rows of `batch` seeded synthetic
+    pairs of n_points: loss, launches, rows, gradients and buffers (on the
+    CPU)."""
+    from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
+
+    net = BidPointFlowNet(cfg, device=mesh.device,
+                          generator=torch.Generator().manual_seed(model_seed))
+    step = make_train_step(net, make_optimizer(net), mesh=mesh)
+    rows = shard_batch(mesh, synthetic_batches(1, batch, n_points,
+                                               batch_seed, mesh.device)[0])
+    kernels.reset_launches()
+    loss = float(step(rows))
+    return dict(loss=loss, launches=dict(kernels.LAUNCHES),
+                rows=rows["pos1"].shape[0],
+                grads={n: p.grad.cpu() for n, p in net.named_parameters()},
+                buffers={n: b.cpu() for n, b in net.named_buffers()})
+
+
 CASES = dict(bn=case_bn, train64=case_train64, train32=case_train32,
              kd64=case_kd64, eval=case_eval, train_teacher=case_train_teacher,
-             replicate=case_replicate, identity=case_identity)
+             replicate=case_replicate, identity=case_identity,
+             mesh_step=case_mesh_step)
 
 
 # ------------------------------------------------------------------ spawner
 
-def _rank(rank, world, workdir, cases):
+def _rank(rank, world, workdir, cases, device):
     torch.set_num_threads(1)
     results = {}
     try:
-        mesh = init_mesh(rank, world, f"file://{workdir}/pg", "cpu",
+        mesh = init_mesh(rank, world, f"file://{workdir}/pg", device,
+                         backend="gloo",
                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
         for key, (name, kw) in cases.items():
             try:
@@ -324,12 +347,15 @@ def _rank(rank, world, workdir, cases):
         pickle.dump(results, fd)
 
 
-def start(world: int, cases: dict, workdir: str) -> tuple:
-    """Spawn `world` gloo ranks that run cases ({key: (case name, keyword
-    inputs)}); collect(start(...)) waits for them."""
+def start(world: int, cases: dict, workdir: str,
+          device: str = "cpu") -> tuple:
+    """Spawn `world` gloo ranks on device (every rank on the one device)
+    that run cases ({key: (case name, keyword inputs)});
+    collect(start(...)) waits for them."""
     os.makedirs(workdir, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(r, world, workdir, cases))
+    procs = [ctx.Process(target=_rank, args=(r, world, workdir, cases,
+                                             device))
              for r in range(world)]
     for p in procs:
         p.start()
