@@ -13,8 +13,9 @@ through the kernels against the same path through the plain versions.
 Then the main path's kernels line. One KD step teacher -> lighttoken_res
 and one fast KD step bifeat -> fg (tests/torch_port_checks.py kd_step),
 batch 8 of 8192-point pairs, float32 products in full float32 (no TF32),
-each run once under kernels.counting() and STEPS times more under
-torch.profiler. It prints one {"kernels": [...], "card": ...} JSON line
+each run once under kernels.counting() (eager: the bounds), then captured
+as its CUDA graph and replayed STEPS times under torch.profiler, as the
+cells run it. It prints one {"kernels": [...], "card": ...} JSON line
 with a row per step and kernel: launches a step, device ms a step, bound
 ms a step, and the bound's share of the device time in %. A call's bound
 is its operations over the float32 peak or its bytes over the HBM
@@ -39,7 +40,8 @@ import torch_port_checks as checks  # noqa: E402
 CARD_FILES = ("tests/test_torch_port_card_kernels.py",
               "tests/test_torch_port_card_paths.py",
               "tests/test_torch_port_eval_graph.py",
-              "tests/test_torch_port_knn_features.py")
+              "tests/test_torch_port_knn_features.py",
+              "tests/test_torch_port_train_graph.py")
 KD_PATHS = ("kd", "fast_kd")
 STEPS = 2
 # the port kernel a device kernel belongs to (the pool backward is two
@@ -100,7 +102,15 @@ def kernel_rows(device: str = "cuda", cfg=str, batch: int = checks.KD_BATCH,
                 n_points: int = checks.N_POINTS) -> list:
     """A row per KD path of KD_PATHS and kernel it calls: launches, device
     ms (None off the card), bound ms and the bound's share in % of a step;
-    cfg(name) is the configuration of each preset name."""
+    cfg(name) is the configuration of each preset name. On the card the
+    step runs as the cells run it, replayed from its CUDA graph
+    (train/graphs.py): two steps capture it, then STEPS replays give the
+    launches (ops.kernels.LAUNCHES, which a replay adds to) and the device
+    ms. The bounds come from a step under kernels.counting(), which runs
+    eager and does the same work; off the card that step's calls are the
+    launches."""
+    from kd_pointcloud_tpu_torch.ops import kernels
+    from kd_pointcloud_tpu_torch.perf import train_graph_counts
     from kd_pointcloud_tpu_torch.train.overfit import synthetic_batches
 
     rows = []
@@ -111,9 +121,21 @@ def kernel_rows(device: str = "cuda", cfg=str, batch: int = checks.KD_BATCH,
         step = checks.kd_step(path, teacher.eval(), student)
         data = synthetic_batches(1, batch, n_points, checks.SEED + 2,
                                  device)[0]
-        calls, bound = counted(lambda: step(data))
-        ms = device_ms(lambda: step(data)) if device == "cuda" else {}
-        for name, n in calls.items():
+        launches, bound = counted(lambda: step(data))
+        ms = {}
+        if device == "cuda":
+            step(data)                  # eager, on the capture's stream
+            step(data)                  # captured and replayed
+            kernels.reset_launches()
+            ms = device_ms(lambda: step(data))
+            assert train_graph_counts() == dict(captures=0, replays=STEPS,
+                                                eager=0)
+            replayed = {n: c // STEPS for n, c in kernels.LAUNCHES.items()
+                        if c}
+            assert all(c % STEPS == 0 for c in kernels.LAUNCHES.values())
+            assert replayed.keys() == launches.keys(), (replayed, launches)
+            launches = replayed
+        for name, n in launches.items():
             t, b = ms.get(name), bound[name]
             rows.append(dict(path=path, kernel=name, launches=n,
                              device_ms=t, bound_ms=b,

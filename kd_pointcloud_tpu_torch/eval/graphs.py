@@ -49,23 +49,20 @@ the attribute) is not seen: make a new forward after such a change.
 
 Counters: ops.kernels.EVAL_GRAPHS (perf.eval_graph_counts()) counts
 captures, requests answered by a replay (a capture's own among them) and
-requests run eager. A capture takes the launches it recorded back out of
-ops.kernels.LAUNCHES and WIDTH_LAUNCHES, and a replay adds them, so those
-still count kernels that ran.
+requests run eager. The cache, the warm-up, the capture and the replay are
+cuda_graphs.py CallGraphs', which train/graphs.py StepGraphs shares.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
-from typing import Callable, NamedTuple
+from typing import Callable
 
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
+from ..cuda_graphs import CallGraphs
 from ..ops import kernels
 
 MAX_SIGNATURES = 4
-_UNSEEN = object()
 _PTR = torch.Tensor.data_ptr
 
 
@@ -90,86 +87,26 @@ def engages(sync_free: bool, model, args) -> bool:
             and not torch.cuda.is_current_stream_capturing())
 
 
-class _Graph(NamedTuple):
-    """A captured forward: the graph, its static inputs and flow0, the
-    launches (kernels.restore_launches' pair) a replay runs, and where the
-    weights lay at capture."""
-
-    graph: torch.cuda.CUDAGraph
-    inputs: list
-    output: torch.Tensor
-    launches: tuple
-    weights: tuple
-
-
-class EvalGraphs:
+class EvalGraphs(CallGraphs):
     """forward(*args) -> flow0 of model, answered from CUDA graphs where
     they engage (the module docstring), else eager. Call it inside
     torch.inference_mode()."""
 
+    max_signatures = MAX_SIGNATURES
+    counts = kernels.EVAL_GRAPHS
+
     def __init__(self, model: torch.nn.Module, forward: Callable):
+        super().__init__(forward)
         self.model, self.forward = model, forward
         self.sync_free = host_sync_free(model)
         self._state = [*model.parameters(), *model.buffers()]
-        self._graphs: OrderedDict = OrderedDict()
-        self._streams: dict = {}
 
-    def __call__(self, *args):
-        if not engages(self.sync_free, self.model, args):
-            return self._eager(args)
-        key = signature(args)
-        graph = self._graphs.get(key, _UNSEEN)
-        if graph is _UNSEEN:
-            self._graphs[key] = None
-            while len(self._graphs) > MAX_SIGNATURES:
-                self._graphs.popitem(last=False)
-            return self._warm_up(args)
-        self._graphs.move_to_end(key)
-        weights = tuple(map(_PTR, self._state))
-        if graph is None or graph.weights != weights:
-            if _autograd_profiler._is_profiler_enabled:
-                return self._eager(args)
-            self._graphs[key] = None        # the old pool goes first
-            graph = self._graphs[key] = self._capture(args, weights)
-        return self._replay(graph, args)
+    def engages(self, args) -> bool:
+        return engages(self.sync_free, self.model, args)
 
-    def _stream(self, device) -> torch.cuda.Stream:
-        if device not in self._streams:
-            self._streams[device] = torch.cuda.Stream(device=device)
-        return self._streams[device]
+    def signature(self, args) -> tuple:
+        return signature(args)
 
-    def _eager(self, args):
-        kernels.EVAL_GRAPHS["eager"] += 1
-        return self.forward(*args)
-
-    def _warm_up(self, args):
-        """The eager forward on the side stream the capture will use."""
-        side = self._stream(args[0].device)
-        here = torch.cuda.current_stream(args[0].device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            out = self._eager(args)
-        here.wait_stream(side)
-        out.record_stream(here)     # the caller reads and frees it here
-        return out
-
-    def _capture(self, args, weights) -> _Graph:
-        static = [torch.empty_like(a, memory_format=torch.contiguous_format)
-                  for a in args]
-        graph = torch.cuda.CUDAGraph()
-        before = dict(kernels.LAUNCHES), dict(kernels.WIDTH_LAUNCHES)
-        try:
-            with torch.cuda.graph(graph, stream=self._stream(args[0].device)):
-                out = self.forward(*static)
-        finally:
-            launches = kernels.restore_launches(before)
-        kernels.EVAL_GRAPHS["captures"] += 1
-        return _Graph(graph, static, out, launches, weights)
-
-    def _replay(self, graph: _Graph, args):
-        for static, a in zip(graph.inputs, args):
-            static.copy_(a)
-        graph.graph.replay()
-        kernels.add_launches(graph.launches)
-        kernels.EVAL_GRAPHS["replays"] += 1
-        return graph.output.clone()
+    def where(self) -> tuple:
+        """Where the model's parameters and buffers lie now."""
+        return tuple(map(_PTR, self._state))

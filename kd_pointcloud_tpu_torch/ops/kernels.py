@@ -21,7 +21,9 @@ the counters (``restore_launches``) and added again at each replay
 (``add_launches``), so the counters keep counting kernels that ran.
 ``EVAL_GRAPHS`` counts how the eval forward (eval/graphs.py) answered its
 requests: captures of a graph, requests answered by a replay (a capture's
-own request among them) and requests run eagerly.
+own request among them) and requests run eagerly; ``TRAIN_GRAPHS`` the
+same of a train step (train/graphs.py): captures, steps replayed, steps
+run eagerly.
 
 ``kernel_work`` gives the operations and bytes a kernel's call needs on its
 inputs (each input read once, each output written once), the numbers its
@@ -61,6 +63,7 @@ LAUNCHES = {"fps": 0, "knn": 0, "pool": 0, "pool_bwd": 0, "fps_pruned": 0,
             "cross_pool": 0, "knn_features": 0}
 WIDTH_LAUNCHES: dict = {}
 EVAL_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
+TRAIN_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes) of each extern "C" entry point; every one returns
@@ -96,12 +99,13 @@ _count = None          # the WorkCount of the innermost counting() block
 
 
 def reset_launches() -> None:
-    """Zero the launch counters and EVAL_GRAPHS."""
+    """Zero the launch counters, EVAL_GRAPHS and TRAIN_GRAPHS."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     WIDTH_LAUNCHES.clear()
-    for name in EVAL_GRAPHS:
-        EVAL_GRAPHS[name] = 0
+    for counts in (EVAL_GRAPHS, TRAIN_GRAPHS):
+        for name in counts:
+            counts[name] = 0
 
 
 def restore_launches(before: tuple) -> tuple:

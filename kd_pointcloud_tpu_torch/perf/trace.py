@@ -30,6 +30,9 @@ program's spans (``SPANS``):
 
   kd.teacher, kd.student, kd.loss, kd.backward, kd.optimizer
       the phases of a KD step (train/distill.py)
+  kd.step
+      a KD step replayed from its CUDA graph, with its batch's copies
+      (train/graphs.py)
   train.forward, train.loss, train.backward, train.optimizer
       the phases of a supervised train step (train/loop.py
       make_train_step)
@@ -46,7 +49,9 @@ program's spans (``SPANS``):
 An eval request answered by a CUDA graph's replay (eval/graphs.py) opens
 eval.forward only: the model's Python, and its spans, ran at capture.
 ``eval_graph_counts()`` reads how often the eval forward captured,
-replayed and ran eager.
+replayed and ran eager. A KD step replayed from its graph
+(train/graphs.py) opens kd.step only; ``train_graph_counts()`` reads how
+often the KD steps captured, replayed and ran eager.
 
 Reading a trace: ``idle_by_span(events)`` takes the events of a trace
 that ``trace`` wrote (``json.load(f)["traceEvents"]``) and returns the
@@ -87,7 +92,7 @@ WARM_UP_KERNELS = 512
 SETTLE_KERNELS = 512
 SETTLE_KERNEL = "spin_kernel"         # torch.cuda._sleep's
 SPANS = ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
-         "kd.optimizer", "train.forward", "train.loss", "train.backward",
+         "kd.optimizer", "kd.step", "train.forward", "train.loss", "train.backward",
          "train.optimizer", "eval.forward", "model.encode", "model.cross",
          "model.cost_volume", "model.flow_head", "model.upsample",
          "knn_features")
@@ -175,6 +180,15 @@ def eval_graph_counts() -> dict:
     from ..ops import kernels
 
     return dict(kernels.EVAL_GRAPHS)
+
+
+def train_graph_counts() -> dict:
+    """How the train steps ran since the last ops.kernels.reset_launches():
+    CUDA graphs captured, steps answered by a replay, steps run eager
+    (train/graphs.py)."""
+    from ..ops import kernels
+
+    return dict(kernels.TRAIN_GRAPHS)
 
 
 def annotate(name: str):

@@ -22,6 +22,11 @@ averaged over the ranks, as train/loop.py make_train_step does.
 A step opens the spans kd.teacher, kd.student, kd.loss, kd.backward and
 kd.optimizer (the gradients' mean over a mesh and the update) around its
 phases; they are on only while a profiler records (perf/trace.py).
+
+make_distill_step's step, and so make_fast_distill_step's, is replayed
+from a CUDA graph on the card (train/graphs.py StepGraphs: when it
+engages, what forces a new capture, the memory it holds); a replay opens
+kd.step alone. make_bridge_distill_step runs eager.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..losses import (att_iter_loss, bridge_ht_loss,
 from ..nn.pointconv import batch_stats_over
 from ..parallel import Mesh, global_view, sync_grads
 from ..perf.trace import annotate
+from .graphs import StepGraphs
 
 
 def _forward(model, batch):
@@ -66,7 +72,8 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
     config selects biDirection_loss_ht (make_named_loss).
 
     With mesh, batch holds this rank's rows and loss_fn sees the global
-    batch's outputs and batch."""
+    batch's outputs and batch. On the card the step is replayed from a
+    CUDA graph where train/graphs.py's conditions hold."""
     use_full_fp32()
 
     def default_loss(s_out, t_out, batch):
@@ -95,7 +102,7 @@ def make_distill_step(t_model, s_model, optimizer, gamma: float = 0.3,
             optimizer.step()
         return loss.detach()
 
-    return step
+    return StepGraphs(step, (t_model, s_model), (optimizer,), mesh)
 
 
 def make_fast_distill_step(t_model, s_model, optimizer, gamma: float = 0.6,

@@ -40,7 +40,8 @@ FORBIDDEN = re.compile(
 CARD_FILES = ("test_torch_port_card_kernels.py",
               "test_torch_port_card_paths.py",
               "test_torch_port_eval_graph.py",
-              "test_torch_port_knn_features.py", "torch_port_checks.py",
+              "test_torch_port_knn_features.py",
+              "test_torch_port_train_graph.py", "torch_port_checks.py",
               "torch_parallel_ranks.py")
 
 

@@ -185,7 +185,9 @@ def test_spans_change_nothing_the_program_computes(run):
 def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
     """One knn_features span a feature kNN call, and no sync span; every
     span of a KD step and of the model; eval.forward in an eval forward;
-    the train.* phases and model.cost_volume in a pointpwc train step."""
+    the train.* phases and model.cost_volume in a pointpwc train step.
+    kd.step alone is missing: it opens around a CUDA graph's replay, and
+    a KD step on the CPU runs eager."""
     calls = []
     plain = knn.knn_features_plain
 
@@ -205,7 +207,8 @@ def test_traced_fast_kd_step_holds_every_span(tmp_path, monkeypatch):
         train(_batch(2))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
-    assert set(SPANS) <= set(names)
+    assert set(SPANS) - {"kd.step"} <= set(names)
+    assert "kd.step" not in names
     for phase in ("kd.teacher", "kd.student", "kd.loss", "kd.backward",
                   "kd.optimizer", "eval.forward", "train.forward",
                   "train.loss", "train.backward", "train.optimizer"):
